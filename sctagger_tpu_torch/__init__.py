@@ -1,0 +1,23 @@
+"""sctagger_tpu_torch — the PyTorch + CUDA port of sctagger_tpu.
+
+Same CLI surface and byte-identical outputs as the JAX package
+(``sctagger_tpu``), which stays in the repository as the reference each
+module of the port is tested against. This package imports torch and numpy
+and never jax; the JAX-free host modules of ``sctagger_tpu`` (sequence
+packing, TSV I/O, the native host library, ``cli.parse_args``) are reused by
+import.
+
+Ported so far: the ``match_trie`` subcommand.
+
+Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
+  runtime.py          device selection (cuda when available, else cpu)
+  ops/myers.py        plain-torch Myers bit-vector edit distance
+  ops/match_cuda.py   the fused match kernel's wrappers + plain versions
+  ops/_build.py       nvcc build + ctypes binding of csrc/*.cu
+  ops/exact_prefilter.py  host dist<=1 prefilter (copied, JAX-free)
+  models/matcher.py   match_segments: prefilter, chunk dispatch, ties
+  stages/match_trie.py    the match_trie stage
+  csrc/match_full.cu  the hand-written Hopper (sm_90a) match kernel
+"""
+
+__version__ = "0.1.0"

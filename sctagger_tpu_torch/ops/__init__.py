@@ -1,0 +1,4 @@
+"""Ops of the port: plain-torch Myers twins and the CUDA match kernel.
+
+Nothing is imported eagerly: importing a kernel module must never build or
+load a CUDA library (the CPU tests import every module)."""
