@@ -1,24 +1,35 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port (sctagger_tpu_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--segments N]
+    python3 chip_smoke.py [--segments N] [--lr-reads N]
 
 Phases, each fatal on failure:
   1. device: require CUDA; print the card's name and power limit.
-  2. build: compile csrc/*.cu with nvcc (sm_90a) from this checkout, and
-     the host library (sctagger_tpu/native, g++) the TSV I/O and the
-     prefilter use.
-  3. kernel vs plain: the match kernel (match_full / match_full_dynls)
-     against its plain torch version on the card, exact equality, at
-     m in {16, 31, 32}, uniform and ragged lengths, a read with > 8 ties,
-     and one 16,384-read x 50,000-pattern chunk of 24 bp segments (timed);
-     then match_segments on the card against the CPU with > 8 ties and
-     with 40 bp barcodes (tie escalation and the multi-word path).
-  4. main path: `match_trie` through sctagger_tpu_torch.cli.main on the
-     flagship workload (bench.make_inputs: N segments x 25,000 barcodes,
-     mr=2), counting kernel launches.
-  5. output check: the first 4,096 LR rows rerun through the plain path on
-     the CPU must give byte-identical rows.
+  2. build: compile csrc/*.cu with nvcc (sm_90a, one nvcc per source, in
+     parallel) from this checkout, and the host library (sctagger_tpu/native,
+     g++) that FASTQ/TSV I/O and the prefilters use.
+  3. kernel vs plain:
+     - the match kernel (match_full / match_full_dynls) against its plain
+       torch version on the card, exact equality, at m in {16, 31, 32},
+       uniform and ragged lengths, a read with > 8 ties, and one 16,384-read
+       x 50,000-pattern chunk of 24 bp segments (timed); then
+       match_segments on the card against the CPU with > 8 ties and with
+       40 bp barcodes (tie escalation and the multi-word path);
+     - the adapter-scan kernel (adapter_scan) against adapter_scan_ref on
+       the card, exact equality of the full rows, at m in {22, 31, 32},
+       uniform and ragged lengths, empty and shorter-than-m reads, reads
+       with > 4 optimal ends and reads of >= 70,000 bp; then one 16,384-read
+       chunk of 1,000-3,000 bp reads (timed).
+  4. main paths, each with every launch count set to 0 just before it:
+     - `match_trie` through sctagger_tpu_torch.cli.main on the flagship
+       workload (bench.make_inputs: N segments x 25,000 barcodes, mr=2);
+     - `extract_lr_bc` through sctagger_tpu_torch.cli.main on N long reads
+       (tools/measure_reference.make_lr_fastq: 1,000-3,000 bp, the 22 bp
+       adapter at 0-19 with 5% substitutions).
+  5. output checks: the first 4,096 LR rows of `match_trie` rerun through the
+     plain path on the CPU must give byte-identical rows; a 20,000-read
+     `extract_lr_bc` run (plus reads with N and one with > 4 ends) on the
+     card and on the CPU must write identical TSVs.
 
 The line before the last is a JSON object with the kernel table; the last
 line is {"ok": true, "device": {...}}. Exits nonzero, printing no result,
@@ -42,6 +53,13 @@ ROOT = pathlib.Path(__file__).resolve().parent
 N_BARCODES = 25_000
 HEAD_ROWS = 4096
 KERNEL_SRC = "sctagger_tpu_torch/csrc/match_full.cu"
+ADAPTER_SRC = "sctagger_tpu_torch/csrc/adapter_scan.cu"
+ADAPTER_REPLACES = (
+    "sctagger_tpu/ops/adapter_pallas.py:255 (_adapter_scan_call; body "
+    "_kernel :97)"
+)
+ADAPTER = "CTACACGACGCTCTTCCGATCT"
+LR_CHECK_READS = 20_000
 REPLACES = (
     "sctagger_tpu/ops/match_pallas.py:207 (_match_full_kernel via "
     "match_full_tpu :357) + :260 (_match_full_dynls_kernel via "
@@ -202,11 +220,12 @@ def _write_inputs(tmp: pathlib.Path, segs, barcodes):
 
 
 def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
-    """Phases 4 and 5."""
+    """Phases 4a and 5a: match_trie."""
     import torch
 
     import bench
     from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
     from sctagger_tpu_torch.ops import match_cuda as mc
     from sctagger_tpu_torch.stages import match_trie
 
@@ -221,6 +240,7 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     argv = ["match_trie", "-lr", str(lr), "-sr", str(sr), "-mr", "2",
             "-o", str(out)]
     mc.LAUNCHES = 0
+    ac.LAUNCHES = 0
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
@@ -260,24 +280,230 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     return {"launches": launches, "wall_s": wall}
 
 
+def _dna(rng, n: int) -> str:
+    return np.frombuffer(b"ACGT", np.uint8)[rng.integers(0, 4, n)].tobytes().decode()
+
+
+def _mutate(rng, s: str, k: int) -> str:
+    b = list(s)
+    for _ in range(k):
+        at = int(rng.integers(len(b)))
+        op = int(rng.integers(3))
+        if op == 0:
+            b[at] = "ACGT"[int(rng.integers(4))]
+        elif op == 1 and len(b) > 1:
+            del b[at]
+        else:
+            b.insert(at, "ACGT"[int(rng.integers(4))])
+    return "".join(b)
+
+
+def _adapter_reads(rng, adapter: str, n: int, lo: int, hi: int) -> list[str]:
+    """Reads of lo..hi bp; most carry a mutated adapter on either strand."""
+    out = []
+    for _ in range(n):
+        t = _dna(rng, int(rng.integers(lo, hi + 1)))
+        r = rng.random()
+        a = adapter if r < 0.4 else _rev_compl(adapter) if r < 0.8 else ""
+        a = _mutate(rng, a, int(rng.integers(0, 4))) if a else a
+        if a and len(t) >= len(a):
+            p = int(rng.integers(0, len(t) - len(a) + 1))
+            t = t[:p] + a + t[p + len(a):]
+        out.append(t)
+    return out
+
+
+def _k6_rows(reads, adapter: str, sort: bool = False):
+    """One kernel chunk of ``reads`` on the card: (text, lens, peq, m)."""
+    import torch
+
+    from sctagger_tpu.core.packing import encode_str
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
+    from sctagger_tpu_torch.ops.myers import build_peq_multi
+
+    lens = np.array([len(r) for r in reads])
+    idx = np.argsort(lens, kind="stable") if sort else np.arange(len(reads))
+    text, ln, junk = ac.pack_chunk(reads, idx, int(lens.max()))
+    assert not junk.any()
+    peq = ac.prep_peq(build_peq_multi(np.stack(
+        [encode_str(adapter), encode_str(_rev_compl(adapter))])))
+    dev = torch.device("cuda")
+    return (torch.from_numpy(text).to(dev), torch.from_numpy(ln).to(dev), peq,
+            len(adapter))
+
+
+def k6_timed_chunk(rng):
+    """One realistic K6 chunk: 16,384 length-sorted reads of 1,000-3,000 bp
+    with the adapter at 0-19 under 5% substitutions (the main path's
+    reads)."""
+    reads = []
+    for _ in range(16_384):
+        t = _dna(rng, int(rng.integers(1000, 3000)))
+        a = "".join(c if rng.random() >= 0.05 else "ACGT"[int(rng.integers(4))]
+                    for c in ADAPTER)
+        p = int(rng.integers(0, 20))
+        reads.append(t[:p] + a + t[p:])
+    return _k6_rows(reads, ADAPTER, sort=True)
+
+
+def check_adapter_kernel() -> dict:
+    """Phase 3b: K6 == adapter_scan_ref on the card (full rows, exact), then
+    the timed realistic chunk."""
+    import torch
+
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
+
+    rng = np.random.default_rng(3)
+    adapters = {22: ADAPTER, 31: ADAPTER + "AGTCAGGTA", 32: ADAPTER + "AGTCAGGTAC"}
+    worst = 0
+    cases = []
+    for m, a in adapters.items():
+        cases.append((f"m={m} uniform 400 bp", a, _adapter_reads(rng, a, 3000, 400, 400)))
+        reads = _adapter_reads(rng, a, 3000, 0, 600)
+        reads += ["", "", a[: m // 2], _dna(rng, m - 1), "CC" + (a + "TTT") * 6]
+        cases.append((f"m={m} ragged 0-600 bp, empty, < m, > 4 ends", a, reads))
+    long_reads = _adapter_reads(rng, ADAPTER, 3, 70_000, 72_000)
+    long_reads += _adapter_reads(rng, ADAPTER, 61, 0, 3000) + ["CC" + (ADAPTER + "T") * 9]
+    cases.append(("m=22 three reads >= 70,000 bp + short", ADAPTER, long_reads))
+    for name, a, reads in cases:
+        args = _k6_rows(reads, a)
+        got = ac.adapter_scan(*args)
+        ref = ac.adapter_scan_ref(*args)
+        torch.cuda.synchronize()
+        err = int((got - ref).abs().max())
+        worst = max(worst, err)
+        over = int(((ref[1] > ac.SLOTS_K) | (ref[7] > ac.SLOTS_K)).sum())
+        empty = [i for i, r in enumerate(reads) if not r]
+        empty_ok = all(int(ref[0, i]) == len(a) == int(ref[6, i]) for i in empty)
+        log(f"[k6] {name}: reads={len(reads)} reads>4ends={over} "
+            f"max_abs_err={err} full rows equal={torch.equal(got, ref)}")
+        if not torch.equal(got, ref) or not empty_ok:
+            raise AssertionError(f"K6 disagrees with adapter_scan_ref ({name})")
+        if "> 4 ends" in name and over == 0:
+            raise AssertionError(f"no read with > 4 ends in case {name}")
+
+    args = k6_timed_chunk(rng)
+    got = ac.adapter_scan(*args)
+    ref = ac.adapter_scan_ref(*args)
+    torch.cuda.synchronize()
+    err = int((got - ref).abs().max())
+    worst = max(worst, err)
+    if not torch.equal(got, ref):
+        raise AssertionError("K6 disagrees with adapter_scan_ref (timed chunk)")
+    ms = _cuda_ms(lambda: ac.adapter_scan(*args), reps=20)
+    plain_ms = _cuda_ms(lambda: ac.adapter_scan_ref(*args), reps=1)
+    log(f"[k6] chunk of 16,384 reads x 1,000-3,000 bp ({args[0].shape[1]} "
+        f"bytes/row): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+        f"max_abs_err={err} ({gpu_line()})")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
+
+
+def _lr_stats(stats_path: pathlib.Path) -> dict:
+    return json.loads(stats_path.read_text().splitlines()[-1])
+
+
+def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
+    """Phase 4b: extract_lr_bc through the CLI on the card."""
+    import gzip
+
+    import torch
+
+    import measure_reference
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
+    from sctagger_tpu_torch.ops import match_cuda as mc
+
+    fq = tmp / "lr.fastq"
+    t0 = time.perf_counter()
+    bp = measure_reference.make_lr_fastq(fq, n_reads, 2000, seed=42, err_rate=0.05)
+    log(f"[lr] input: {n_reads} reads, {bp} bp, adapter at 0-19 with 5% "
+        f"substitutions ({time.perf_counter() - t0:.1f}s to generate)")
+    out = tmp / "lr_out.tsv.gz"
+    stats_path = tmp / "stats_lr.jsonl"
+    os.environ["SCTAG_STATS"] = str(stats_path)
+    mc.LAUNCHES = 0
+    ac.LAUNCHES = 0
+    t0 = time.perf_counter()
+    cli.main(["extract_lr_bc", "-r", str(fq), "-o", str(out)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ac.LAUNCHES
+    t = _lr_stats(stats_path)["timers_s"]
+    resolved = sum(t.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
+    log(f"[lr] extract_lr_bc wall {wall:.3f}s = {n_reads / wall:.1f} reads/s "
+        f"({gpu_line()}); stage timers {t}")
+    log(f"[lr] prefilter-resolved {int(resolved)}, prefilter-deferred "
+        f"{int(t.get('scan.prefilter_deferred_reads', 0))}, kernel reads "
+        f"{int(t.get('scan.kernel_reads', 0))} in "
+        f"{int(t.get('scan.kernel_chunks', 0))} chunks, mask-path reads "
+        f"{int(t.get('scan.mask_reads', 0))}, K6 launches {launches}")
+    if launches == 0:
+        raise AssertionError("the extract_lr_bc main path launched no K6")
+    with gzip.open(out, "rt") as f:
+        rows = [ln.split("\t") for ln in f]
+    valid = sum(r[1] != "-1" for r in rows)
+    log(f"[lr] {len(rows)} rows, {valid} with an adapter in range")
+    if len(rows) != n_reads or any(len(r) != 4 for r in rows) or valid < n_reads // 2:
+        raise AssertionError("extract_lr_bc output has the wrong shape")
+    return {"launches": launches, "wall_s": wall}
+
+
+def check_stage1_output(tmp: pathlib.Path) -> None:
+    """Phase 5b: the whole stage on the card and on the CPU, same TSV."""
+    import gzip
+
+    import measure_reference
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.stages import extract_lr_bc
+
+    fq = tmp / "lr_check.fastq"
+    measure_reference.make_lr_fastq(fq, LR_CHECK_READS, 2000, seed=7, err_rate=0.05)
+    rng = np.random.default_rng(11)
+    extra = _adapter_reads(rng, ADAPTER, 6, 500, 2500)
+    extra = [r[:100] + "N" + r[101:300] + "NN" + r[302:] for r in extra]
+    extra.append("CC" + (ADAPTER + "TTT") * 6 + _dna(rng, 500))  # > 4 ends
+    with open(fq, "a") as f:
+        f.writelines(f"@x{i} y\n{s}\n+\n{'I' * len(s)}\n" for i, s in enumerate(extra))
+    tsv = {}
+    for dev in ("cuda", "cpu"):
+        out = tmp / f"lr_check_{dev}.tsv.gz"
+        t0 = time.perf_counter()
+        extract_lr_bc.run(
+            cli.parse_args(["extract_lr_bc", "-r", str(fq), "-o", str(out)]),
+            device=dev,
+        )
+        tsv[dev] = gzip.decompress(out.read_bytes())
+        log(f"[check] extract_lr_bc {LR_CHECK_READS + len(extra)} reads on "
+            f"{dev}: {time.perf_counter() - t0:.1f}s")
+    n = tsv["cpu"].count(b"\n")
+    log(f"[check] card TSV == CPU TSV: {tsv['cuda'] == tsv['cpu']} ({n} rows)")
+    if tsv["cuda"] != tsv["cpu"] or n != LR_CHECK_READS + len(extra):
+        raise AssertionError("extract_lr_bc on the card differs from the CPU")
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", type=int, default=1_048_576,
-                    help="LR segments in the main-path run (>= 262144)")
+                    help="LR segments in the match_trie run (>= 262144)")
+    ap.add_argument("--lr-reads", type=int, default=1_000_000,
+                    help="long reads in the extract_lr_bc run (>= 250000)")
     args = ap.parse_args(argv)
     if args.segments < 262_144:
         ap.error("--segments must be >= 262144")
+    if args.lr_reads < 250_000:
+        ap.error("--lr-reads must be >= 250000")
 
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if not (ROOT / KERNEL_SRC).exists() or not (ROOT / "bench.py").exists():
+    if not all((ROOT / f).exists() for f in (KERNEL_SRC, ADAPTER_SRC, "bench.py")):
         print(f"chip_smoke: {ROOT} is not a checkout of the repository",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
     gpu = gpu_line()
     log(f"[device] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -285,17 +511,21 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     _build.build()
-    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}: "
-        f"{time.perf_counter() - t0:.1f}s\n{_build.BUILD_LOG.strip()}")
-    _build.load()
+    log(f"[build] nvcc {' '.join(_build.NVCC_FLAGS)}, one per source in "
+        f"parallel: {time.perf_counter() - t0:.1f}s\n{_build.BUILD_LOG.strip()}")
+    for name in _build._SRCS:
+        _build.load(name)
     t0 = time.perf_counter()
     _build.build_host()
     log(f"[build] host library: {time.perf_counter() - t0:.1f}s")
 
     timing = check_kernels()
     check_device_paths()
+    k6 = check_adapter_kernel()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         res = main_path(args.segments, pathlib.Path(tmp))
+        res_lr = stage1_main_path(args.lr_reads, pathlib.Path(tmp))
+        check_stage1_output(pathlib.Path(tmp))
 
     log(json.dumps({"kernels": [{
         "name": "match_full",
@@ -306,6 +536,15 @@ def main(argv=None) -> int:
         "max_abs_err": timing["max_abs_err"],
         "ms": timing["ms"],
         "plain_ms": timing["plain_ms"],
+    }, {
+        "name": "adapter_scan",
+        "route": "cuda",
+        "source": ADAPTER_SRC,
+        "replaces": ADAPTER_REPLACES,
+        "launches": res_lr["launches"],
+        "max_abs_err": k6["max_abs_err"],
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
     }]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

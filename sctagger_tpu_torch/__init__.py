@@ -7,16 +7,21 @@ and never jax; the JAX-free host modules of ``sctagger_tpu`` (sequence
 packing, TSV I/O, the native host library, ``cli.parse_args``) are reused by
 import.
 
-Ported so far: the ``match_trie`` subcommand.
+Ported so far: the ``extract_lr_bc`` and ``match_trie`` subcommands.
 
 Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   runtime.py          device selection (cuda when available, else cpu)
+  observability.py    stage stats and the progress bar
   ops/myers.py        plain-torch Myers bit-vector edit distance
+  ops/adapter_cuda.py the adapter-scan kernel's wrapper + plain version
   ops/match_cuda.py   the fused match kernel's wrappers + plain versions
   ops/_build.py       nvcc build + ctypes binding of csrc/*.cu
   ops/exact_prefilter.py  host dist<=1 prefilter (copied, JAX-free)
+  models/adapter.py   scan_adapters(_stream): prefilter, kernel, fallbacks
   models/matcher.py   match_segments: prefilter, chunk dispatch, ties
+  stages/extract_lr_bc.py the extract_lr_bc stage
   stages/match_trie.py    the match_trie stage
+  csrc/adapter_scan.cu    the hand-written Hopper (sm_90a) adapter-scan kernel
   csrc/match_full.cu  the hand-written Hopper (sm_90a) match kernel
 """
 

@@ -1,4 +1,5 @@
-"""Ops of the port: plain-torch Myers twins and the CUDA match kernel.
+"""Ops of the port: plain-torch Myers twins and the CUDA kernels
+(match, adapter scan).
 
 Nothing is imported eagerly: importing a kernel module must never build or
 load a CUDA library (the CPU tests import every module)."""

@@ -1,14 +1,16 @@
 """Build and bind the port's CUDA kernels (nvcc + ctypes).
 
-The sources in ``sctagger_tpu_torch/csrc/`` are compiled at first use with
+Each source in ``sctagger_tpu_torch/csrc/`` is compiled at first use with
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
          -Xcompiler -fPIC -Xptxas -v
 
-into ``build/sctagger_tpu_torch/`` at the repository root, under a file name
-keyed by a hash of the sources and flags, so an edited source rebuilds. The
-library has a plain C interface (no PyTorch headers), which keeps the build
-to seconds. Nothing here runs at import time; a failed build raises.
+into its own library under ``build/sctagger_tpu_torch/`` at the repository
+root, under a file name keyed by a hash of the source and flags, so an
+edited source rebuilds. All missing libraries build at once, one nvcc
+process per source. The libraries have a plain C interface (no PyTorch
+headers), which keeps a build to seconds. Nothing here runs at import time;
+a failed build raises.
 """
 
 from __future__ import annotations
@@ -23,16 +25,36 @@ import tempfile
 import threading
 
 _PKG = pathlib.Path(__file__).resolve().parents[1]
-_SRCS = [_PKG / "csrc" / "match_full.cu"]
+_SRCS = {
+    "match_full": _PKG / "csrc" / "match_full.cu",
+    "adapter_scan": _PKG / "csrc" / "adapter_scan.cu",
+}
 BUILD_DIR = _PKG.parent / "build" / "sctagger_tpu_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
+_vp, _i32 = ctypes.c_void_p, ctypes.c_int
+# C signature of each library's entry point
+_SIGNATURES = {
+    "match_full": ("sctag_match_full", [
+        _vp, _i32, _i32,  # seg, ls, r_pad
+        _vp, _i32,  # peq, p_pad
+        _vp, _i32, _i32,  # maxlens, mlen_block, m
+        _i32, _vp, _vp,  # tiles_per_split, partial, out
+        _vp,  # stream
+    ]),
+    "adapter_scan": ("sctag_adapter_scan", [
+        _vp, _i32, _i32,  # text, b, row_bytes
+        _vp, _vp, _i32,  # lens, peq (host), m
+        _vp, _vp,  # out, stream
+    ]),
+}
+
 _lock = threading.Lock()
-_lib: ctypes.CDLL | None = None
-BUILD_LOG = ""  # nvcc's output of the build this process ran (ptxas -v)
+_libs: dict[str, ctypes.CDLL] = {}
+BUILD_LOG = ""  # nvcc's output of the builds this process ran (ptxas -v)
 
 
 def _nvcc() -> str:
@@ -45,57 +67,62 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin)")
 
 
-def _lib_path() -> pathlib.Path:
+def _lib_path(name: str) -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _SRCS:
-        h.update(src.read_bytes())
-    return BUILD_DIR / f"libsctag_match_{h.hexdigest()[:16]}.so"
+    h.update(_SRCS[name].read_bytes())
+    return BUILD_DIR / f"libsctag_{name}_{h.hexdigest()[:16]}.so"
 
 
-def build() -> pathlib.Path:
-    """Compile the sources unless a library for their hash exists."""
+def build() -> dict[str, pathlib.Path]:
+    """Compile every source whose library is missing, all in parallel.
+    Returns the library path of each source by name."""
     global BUILD_LOG
-    path = _lib_path()
-    if path.exists():
-        return path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, *map(str, _SRCS)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOG = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{BUILD_LOG}"
-        )
-    os.replace(tmp, path)  # atomic: a concurrent build never sees a partial file
-    return path
+    todo = [name for name in _SRCS if not _lib_path(name).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for name in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, str(_SRCS[name])]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((name, cmd, tmp, proc))
+        logs, failed = [], []
+        for name, cmd, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"[{name}] {' '.join(cmd)}\n{out}")
+            if proc.returncode != 0:
+                os.unlink(tmp)
+                failed.append(f"{name}: nvcc exited {proc.returncode}")
+            else:  # atomic: a concurrent build never sees a partial file
+                os.replace(tmp, _lib_path(name))
+        BUILD_LOG = "\n".join(logs)
+        if failed:
+            raise RuntimeError(f"{'; '.join(failed)}\n{BUILD_LOG}")
+    return {name: _lib_path(name) for name in _SRCS}
 
 
 def build_host() -> pathlib.Path:
     """Build the g++ host library the port reuses from sctagger_tpu/native
-    (TSV parse and write, the prefilter's range search); otherwise it builds
-    at first use, inside whatever stage touches it first."""
+    (FASTQ and TSV I/O, the prefilters); otherwise it builds at first use,
+    inside whatever stage touches it first."""
     from sctagger_tpu.native import build as host
 
     return host.ensure_built()
 
 
-def load() -> ctypes.CDLL:
-    """The kernel library, built on first use, with its C signatures set."""
-    global _lib
+def load(name: str) -> ctypes.CDLL:
+    """The library of source ``name`` (a key of _SRCS), built on first use,
+    with its C signature set."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i32 = ctypes.c_void_p, ctypes.c_int
-            lib.sctag_match_full.restype = i32
-            lib.sctag_match_full.argtypes = [
-                vp, i32, i32,  # seg, ls, r_pad
-                vp, i32,  # peq, p_pad
-                vp, i32, i32,  # maxlens, mlen_block, m
-                i32, vp, vp,  # tiles_per_split, partial, out
-                vp,  # stream
-            ]
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build()[name]))
+            fn_name, argtypes = _SIGNATURES[name]
+            fn = getattr(lib, fn_name)
+            fn.restype = _i32
+            fn.argtypes = argtypes
+            _libs[name] = lib
+        return _libs[name]

@@ -191,7 +191,7 @@ def _launch(seg_T, peq_pm, maxlens, m: int) -> torch.Tensor:
         if n_split > 1
         else None
     )
-    lib = _build.load()
+    lib = _build.load("match_full")
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sctag_match_full(

@@ -9,9 +9,10 @@ complement behaviour the recurrences rely on (m = 32 puts the score bit at
 the sign bit; it is read with an arithmetic shift and a mask, never a
 comparison against a shifted constant).
 
-These are the plain versions behind the CUDA kernel's wrappers
-(ops/match_cuda.py), the matcher's path for patterns longer than 32 bp, and
-tie-overflow escalation.
+These are the plain versions behind the CUDA kernels' wrappers
+(ops/match_cuda.py, ops/adapter_cuda.py), the matcher's path for patterns
+longer than 32 bp, tie-overflow escalation, and stage 1's mask fallback and
+reverse-start recovery (models/adapter.py).
 """
 
 from __future__ import annotations
@@ -34,6 +35,17 @@ def high_bit(m: int) -> int:
 # Peq construction (host-side numpy; copied from sctagger_tpu/ops/myers.py)
 # ---------------------------------------------------------------------------
 
+def build_peq_single(pattern_codes: np.ndarray) -> np.ndarray:
+    """Peq table for one pattern: (5,) int32; bit i of Peq[c] = (pattern[i]==c)."""
+    m = len(pattern_codes)
+    assert 0 < m <= MAX_PATTERN_LEN, m
+    peq = np.zeros(CODE_PAD + 1, dtype=np.int64)
+    for i, c in enumerate(pattern_codes):
+        if c < CODE_PAD:  # junk pattern chars match nothing
+            peq[int(c)] |= 1 << i
+    return peq.astype(np.int32)  # two's complement bit pattern preserved
+
+
 def build_peq_multi(pattern_codes: np.ndarray) -> np.ndarray:
     """Peq table for P patterns: (5, P) int32 from (P, m) code array."""
     P, m = pattern_codes.shape
@@ -47,6 +59,17 @@ def build_peq_multi(pattern_codes: np.ndarray) -> np.ndarray:
 
 def n_words(m: int) -> int:
     return (m + 31) // 32
+
+
+def build_peq_single_mw(pattern_codes: np.ndarray) -> np.ndarray:
+    """(W, 5) int32 Peq for one pattern of any length."""
+    m = len(pattern_codes)
+    W = n_words(m)
+    peq = np.zeros((W, CODE_PAD + 1), dtype=np.int64)
+    for i, c in enumerate(pattern_codes):
+        if c < CODE_PAD:
+            peq[i // 32, int(c)] |= 1 << (i % 32)
+    return peq.astype(np.int32)
 
 
 def build_peq_multi_mw(pattern_codes: np.ndarray) -> np.ndarray:
@@ -124,6 +147,26 @@ def match_block_min(seg_T: torch.Tensor, peq: torch.Tensor, m: int) -> torch.Ten
     return match_best(seg_T, peq, m).amin(dim=1)
 
 
+def scores_scan(text_T: torch.Tensor, peq: torch.Tensor, m: int, shw: bool = False):
+    """Per-position last-row scores (twin of the JAX ``_scores_scan``).
+
+    text_T: (L, B) integer codes, position-major; peq: (5,) one pattern for
+    every lane, or (5, P). Returns (L, B) or (L, B, P) int32: scores[j] is
+    D[m][j+1], the best distance of the pattern against text spans ending
+    at position j. ``shw`` selects the prefix mode."""
+    tab = _eq_table(peq)
+    dev = peq.device
+    shape = (*text_T.shape[1:], *peq.shape[1:])
+    pv = torch.full(shape, -1, dtype=torch.int32, device=dev)
+    mv = torch.zeros(shape, dtype=torch.int32, device=dev)
+    score = torch.full(shape, m, dtype=torch.int32, device=dev)
+    out = torch.empty((text_T.shape[0], *score.shape), dtype=torch.int32, device=dev)
+    for j, c in enumerate(text_T.to(dev)):
+        pv, mv, score = _step(pv, mv, score, _eq_lookup(tab, c), m, shw)
+        out[j] = score
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Multi-word Myers (patterns longer than 32 bp)
 # ---------------------------------------------------------------------------
@@ -173,6 +216,24 @@ def _match_best_mw(seg_T: torch.Tensor, peq_w: torch.Tensor, m: int):
         pvs, mvs, score = _step_mw(pvs, mvs, score, eqs, m)
         torch.minimum(best, score, out=best)
     return best
+
+
+def scores_scan_mw(text_T: torch.Tensor, peq_w: torch.Tensor, m: int, shw: bool = False):
+    """Multi-word ``scores_scan`` (twin of the JAX ``_scores_scan_mw``):
+    peq_w (W, 5) or (W, 5, P)."""
+    W = peq_w.shape[0]
+    tabs = [_eq_table(peq_w[w]) for w in range(W)]
+    dev = peq_w.device
+    shape = (*text_T.shape[1:], *peq_w.shape[2:])
+    pvs = [torch.full(shape, -1, dtype=torch.int32, device=dev) for _ in range(W)]
+    mvs = [torch.zeros(shape, dtype=torch.int32, device=dev) for _ in range(W)]
+    score = torch.full(shape, m, dtype=torch.int32, device=dev)
+    out = torch.empty((text_T.shape[0], *shape), dtype=torch.int32, device=dev)
+    for j, c in enumerate(text_T.to(dev)):
+        eqs = [_eq_lookup(t, c) for t in tabs]
+        pvs, mvs, score = _step_mw(pvs, mvs, score, eqs, m, shw)
+        out[j] = score
+    return out
 
 
 def match_block_min_mw(seg_T, peq_w, m: int) -> torch.Tensor:

@@ -17,8 +17,11 @@ MODULES = [
     "sctagger_tpu_torch.ops.match_cuda",
     "sctagger_tpu_torch.ops._build",
     "sctagger_tpu_torch.ops.exact_prefilter",
+    "sctagger_tpu_torch.ops.adapter_cuda",
     "sctagger_tpu_torch.models.matcher",
+    "sctagger_tpu_torch.models.adapter",
     "sctagger_tpu_torch.stages.match_trie",
+    "sctagger_tpu_torch.stages.extract_lr_bc",
 ]
 
 
