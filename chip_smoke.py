@@ -19,13 +19,30 @@ Phases, each fatal on failure:
        the card, exact equality of the full rows, at m in {22, 31, 32},
        uniform and ragged lengths, empty and shorter-than-m reads, reads
        with > 4 optimal ends and reads of >= 70,000 bp; then one 16,384-read
-       chunk of 1,000-3,000 bp reads (timed).
+       chunk of 1,000-3,000 bp reads (timed);
+     - the min, best-matrix and ties epilogues of the match kernel
+       (match_min / match_best / match_ties, K4 / K5 / K3) against their
+       plain versions, exact equality, at m in {16, 31, 32}, uniform and
+       ragged, a few-read case that splits the pattern axis and merges, a
+       one-tile case that does not, ties at K1's minima and at m; then the
+       16,384-read x 50,000-pattern chunk (timed);
+     - the int32 microkernel (myers_micro, K7) against micro_ref at chains
+       1/2/4/8 (timed at chains 4).
   4. main paths, each with every launch count set to 0 just before it:
      - `match_trie` through sctagger_tpu_torch.cli.main on the flagship
        workload (bench.make_inputs: N segments x 25,000 barcodes, mr=2);
      - `extract_lr_bc` through sctagger_tpu_torch.cli.main on N long reads
        (tools/measure_reference.make_lr_fastq: 1,000-3,000 bp, the 22 bp
-       adapter at 0-19 with 5% substitutions).
+       adapter at 0-19 with 5% substitutions);
+     - `entry()` (sctagger_tpu_torch.entry: K4 on the toy problem), its
+       output equal to the CPU plain version's;
+     - `tools.profile_match` (K4 pass 1 at 131,072 segments, K5 + top-k
+       and K3 pass 2);
+     - `tools.roofline` (K7 ceiling at chains 1/2/4/8, K1 and K6 read as
+       shares of it), whose JSON is printed on a [roofline] line.
+     check_device_paths (phase 3) also requires that the > 8-ties escalation
+     at bl 16 launched match_best (K5) on the card; the `match_trie` run
+     logs the reads it escalates and K5's launches there.
   5. output checks: the first 4,096 LR rows of `match_trie` rerun through the
      plain path on the CPU must give byte-identical rows; a 20,000-read
      `extract_lr_bc` run (plus reads with N and one with > 4 ends) on the
@@ -42,7 +59,6 @@ import argparse
 import json
 import os
 import pathlib
-import subprocess
 import sys
 import tempfile
 import time
@@ -58,6 +74,16 @@ ADAPTER_REPLACES = (
     "sctagger_tpu/ops/adapter_pallas.py:255 (_adapter_scan_call; body "
     "_kernel :97)"
 )
+MICRO_SRC = "sctagger_tpu_torch/csrc/myers_micro.cu"
+VARIANT_REPLACES = {
+    "match_min": "sctagger_tpu/ops/match_pallas.py:452 (match_min_tpu; body "
+                 "_match_min_kernel :137)",
+    "match_best": "sctagger_tpu/ops/match_pallas.py:476 (match_best_tpu; body "
+                  "_match_best_kernel :153)",
+    "match_ties": "sctagger_tpu/ops/match_pallas.py:399 (match_ties_tpu; body "
+                  "_match_ties_kernel :166)",
+}
+MICRO_REPLACES = "tools/roofline.py:114 (measure_vpu_bound.run_c; body _micro_kernel :55)"
 ADAPTER = "CTACACGACGCTCTTCCGATCT"
 LR_CHECK_READS = 20_000
 REPLACES = (
@@ -71,27 +97,27 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def gpu_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True,
-    )
-    return out.stdout.strip()
-
-
-def _cuda_ms(fn, reps: int) -> float:
+def _timed_once(fn):
+    """(result, ms) of one call of ``fn`` between two CUDA events."""
     import torch
 
-    fn()  # warm-up
     torch.cuda.synchronize()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     t0.record()
-    for _ in range(reps):
-        fn()
+    out = fn()
     t1.record()
     t1.synchronize()
-    return t0.elapsed_time(t1) / reps
+    return out, t0.elapsed_time(t1)
+
+
+def _err(got, ref) -> int:
+    """Largest absolute difference of two integer tensors (0 when equal)."""
+    if got.shape != ref.shape:
+        raise AssertionError(f"shape {tuple(got.shape)} != {tuple(ref.shape)}")
+    if got.dtype == ref.dtype and bool((got == ref).all()):
+        return 0
+    return int((got.long() - ref.long()).abs().max())
 
 
 def _encode(segs, ls: int) -> np.ndarray:
@@ -139,6 +165,7 @@ def check_kernels() -> dict:
     import torch
 
     from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.tools import cuda_ms, gpu_line
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
@@ -183,31 +210,155 @@ def check_kernels() -> dict:
         f"patterns={ctx.pat_codes.shape[0]} ls=24 max_abs_err={err}")
     if err != 0:
         raise AssertionError("kernel disagrees with its plain version (flagship)")
-    ms = _cuda_ms(lambda: mc.match_full(seg, peq, 16), reps=10)
-    plain_ms = _cuda_ms(lambda: mc.match_full_ref(seg, peq, 16), reps=2)
+    ms = cuda_ms(lambda: mc.match_full(seg, peq, 16), reps=10)
+    plain_ms = cuda_ms(lambda: mc.match_full_ref(seg, peq, 16), reps=2)
     log(f"[kernel] flagship chunk: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
         f"({gpu_line()})")
     return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
-def check_device_paths() -> None:
-    """match_segments on the card == on the CPU where the card runs plain
-    torch: tie-overflow escalation (bl 16) and the multi-word path (bl 40)."""
+def check_device_paths() -> int:
+    """match_segments on the card == on the CPU: tie-overflow escalation
+    (bl 16, through match_best / K5 on the card) and the multi-word path
+    (bl 40, plain torch on both). Returns K5's launches in the bl 16 run."""
     from sctagger_tpu_torch.models.matcher import match_segments
+    from sctagger_tpu_torch.ops import match_cuda as mc
 
     rng = np.random.default_rng(2)
     for m, ls in ((16, 24), (40, 48)):
         ctx, segs = _case(rng, 2000, 200, m, ls, ragged=True)
         res = {}
         for dev in ("cuda", "cpu"):
+            mc.BEST_LAUNCHES = 0
             r = match_segments(segs, ctx.barcodes, 2, ctx=ctx, device=dev)
             res[dev] = (r.rids.tolist(), r.dists.tolist(), r.tie_counts.tolist(),
                         [r.ties_of(i).tolist() for i in range(r.rids.size)])
+            if dev == "cuda" and m == 16:
+                k5 = mc.BEST_LAUNCHES
         over = sum(c > 8 for c in res["cpu"][2])
         log(f"[paths] bl={m}: {len(res['cpu'][0])} matched, {over} with > 8 "
-            f"ties; card == cpu: {res['cuda'] == res['cpu']}")
+            f"ties; card == cpu: {res['cuda'] == res['cpu']}"
+            + (f"; match_best (K5) launches in the escalation: {k5}" if m == 16 else ""))
         if res["cuda"] != res["cpu"] or over == 0:
             raise AssertionError(f"match_segments differs on the card (bl={m})")
+    if k5 == 0:
+        raise AssertionError("the > 8-ties escalation launched no match_best (K5)")
+    return k5
+
+
+def check_match_variants() -> dict:
+    """Phase 3c: K4, K5 and K3 == their plain versions on the card (exact),
+    then the timed flagship-shaped chunk. Returns per kernel the largest
+    error and the chunk's kernel and plain times."""
+    import torch
+
+    import bench
+    from sctagger_tpu_torch.models.matcher import MatchContext
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.tools import cuda_ms, gpu_line
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(4)
+    worst = dict.fromkeys(VARIANT_REPLACES, 0)
+    split_seen = set()
+    # (m, ls, ragged, reads, barcodes): 600 patterns split into 3 merged
+    # launches (200 reads: the fewest); 100 barcodes fit one Peq tile, no split
+    cases = [(16, 24, False, 3000, 300), (16, 40, True, 3000, 300),
+             (31, 48, True, 3000, 300), (32, 40, False, 3000, 300),
+             (32, 64, True, 3000, 300), (16, 24, False, 200, 300),
+             (16, 24, True, 3000, 100)]
+    for m, ls, ragged, n_reads, n_bc in cases:
+        ctx, segs = _case(rng, n_reads, n_bc, m, ls, ragged)
+        seg = torch.from_numpy(mc.prep_segs_T(_encode(segs, ls), ls)).to(dev)
+        peq = torch.from_numpy(mc.prep_peq_cols(ctx.peq())).to(dev)
+        full = mc.match_full_ref(seg, peq, m)
+        n_split = mc.split_of(dev, seg.shape[1], peq.shape[0])[1]
+        split_seen.add(n_split > 1)
+        at_min = full[0].contiguous()
+        at_m = torch.full_like(at_min, m)
+        pairs = {
+            "match_min": (mc.match_min(seg, peq, m), mc.match_min_ref(seg, peq, m)),
+            "match_best": (mc.match_best(seg, peq, m), mc.match_best_ref(seg, peq, m)),
+            "match_ties": (mc.match_ties(seg, peq, at_min, m),
+                           mc.match_ties_ref(seg, peq, at_min, m)),
+            "match_ties@m": (mc.match_ties(seg, peq, at_m, m),
+                             mc.match_ties_ref(seg, peq, at_m, m)),
+        }
+        torch.cuda.synchronize()
+        errs = {k: _err(*v) for k, v in pairs.items()}
+        # K4 is K1's row 0; K3 at K1's minima is K1's rows 1..
+        agree = (torch.equal(pairs["match_min"][0], full[:1])
+                 and torch.equal(pairs["match_ties"][0], full[1:]))
+        for k, e in errs.items():
+            worst[k.split("@")[0]] = max(worst[k.split("@")[0]], e)
+        hits_m = int((pairs["match_ties@m"][1][0] > 0).sum())
+        log(f"[variants] m={m} ls={ls} ragged={ragged} reads={n_reads} "
+            f"patterns={ctx.pat_codes.shape[0]} splits={n_split} "
+            f"reads>8ties={int((full[1, :n_reads] > mc.TIES_K).sum())} "
+            f"reads with hits at m={hits_m} max_abs_err={errs} "
+            f"== match_full rows: {agree}")
+        if any(errs.values()) or not agree:
+            raise AssertionError(f"K3/K4/K5 disagree with their plain versions (m={m})")
+    if split_seen != {True, False}:
+        raise AssertionError(f"split and unsplit launches not both run: {split_seen}")
+
+    segs, barcodes = bench.make_inputs(16_384, N_BARCODES, seed=0)
+    ctx = MatchContext(barcodes)
+    seg = torch.from_numpy(mc.prep_segs_T(_encode(segs, 24), 24)).to(dev)
+    peq = torch.from_numpy(mc.prep_peq_cols(ctx.peq())).to(dev)
+    target = mc.match_full(seg, peq, 16)[0].contiguous()
+    runs = {
+        "match_min": (lambda: mc.match_min(seg, peq, 16),
+                      lambda: mc.match_min_ref(seg, peq, 16)),
+        "match_best": (lambda: mc.match_best(seg, peq, 16),
+                       lambda: mc.match_best_ref(seg, peq, 16)),
+        "match_ties": (lambda: mc.match_ties(seg, peq, target, 16),
+                       lambda: mc.match_ties_ref(seg, peq, target, 16)),
+    }
+    out = {}
+    for name, (kern, plain) in runs.items():
+        ref, plain_ms = _timed_once(plain)
+        err = _err(kern(), ref)
+        del ref
+        worst[name] = max(worst[name], err)
+        ms = cuda_ms(kern, reps=10)
+        log(f"[variants] {name} flagship chunk reads={seg.shape[1]} "
+            f"patterns={ctx.pat_codes.shape[0]} ls=24: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.3f} ms, max_abs_err={err} ({gpu_line()})")
+        if err != 0:
+            raise AssertionError(f"{name} disagrees with its plain version (flagship)")
+        out[name] = {"max_abs_err": worst[name], "ms": ms, "plain_ms": plain_ms}
+    return out
+
+
+def check_micro() -> dict:
+    """Phase 3d: K7 == micro_ref on the card at every chain count (bp 8 x
+    br 128, 16 iterations, grid 2), then both timed at chains 4 on a
+    64 x 1,024 block, 64 iterations, one copy."""
+    import torch
+
+    from sctagger_tpu_torch.ops import micro_cuda as mic
+    from sctagger_tpu_torch.tools import cuda_ms, gpu_line
+
+    dev = torch.device("cuda")
+    worst = 0
+    for chains in mic.CHAINS:
+        x = mic.micro_input(8, 128).to(dev)
+        err = _err(mic.micro(x, 16, chains, grid=2), mic.micro_ref(x, 16, chains))
+        worst = max(worst, err)
+        log(f"[k7] chains={chains} bp=8 br=128 iters=16 grid=2 max_abs_err={err}")
+        if err:
+            raise AssertionError(f"K7 disagrees with micro_ref (chains={chains})")
+    x = mic.micro_input(64, 1024).to(dev)
+    ref, plain_ms = _timed_once(lambda: mic.micro_ref(x, 64, 4))
+    err = _err(mic.micro(x, 64, 4), ref)
+    worst = max(worst, err)
+    ms = cuda_ms(lambda: mic.micro(x, 64, 4), reps=20)
+    log(f"[k7] chains=4 64x1024 iters=64: kernel {ms:.3f} ms, plain "
+        f"{plain_ms:.3f} ms, max_abs_err={err} ({gpu_line()})")
+    if err:
+        raise AssertionError("K7 disagrees with micro_ref (timed block)")
+    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms}
 
 
 def _write_inputs(tmp: pathlib.Path, segs, barcodes):
@@ -228,6 +379,7 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     from sctagger_tpu_torch.ops import adapter_cuda as ac
     from sctagger_tpu_torch.ops import match_cuda as mc
     from sctagger_tpu_torch.stages import match_trie
+    from sctagger_tpu_torch.tools import gpu_line
 
     t0 = time.perf_counter()
     segs, barcodes = bench.make_inputs(n_segments, N_BARCODES, seed=0)
@@ -239,13 +391,13 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     os.environ["SCTAG_STATS"] = str(stats_path)
     argv = ["match_trie", "-lr", str(lr), "-sr", str(sr), "-mr", "2",
             "-o", str(out)]
-    mc.LAUNCHES = 0
+    mc.LAUNCHES = mc.BEST_LAUNCHES = 0
     ac.LAUNCHES = 0
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = mc.LAUNCHES
+    launches, k5 = mc.LAUNCHES, mc.BEST_LAUNCHES
     st = json.loads(stats_path.read_text().splitlines()[-1])
     c = st["counters"]
     log(f"[main] match_trie wall {wall:.3f}s = {n_segments / wall:.1f} "
@@ -253,9 +405,12 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     log(f"[main] prefilter-resolved {int(c['prefilter_resolved'])}, "
         f"kernel reads {int(c['device_reads'])} in "
         f"{int(c['device_chunks'])} chunks, kernel launches {launches}, "
-        f"matched {int(c['matched'])}")
+        f"matched {int(c['matched'])}, > 8-ties reads escalated "
+        f"{int(c['escalated_reads'])} with {k5} match_best (K5) launches")
     if launches == 0:
         raise AssertionError("the main path launched no kernel")
+    if bool(c["escalated_reads"]) != bool(k5):
+        raise AssertionError("the escalated reads and K5's launches disagree")
 
     # phase 5: the first rows through the plain path on the CPU
     head = tmp / "lr_head.tsv"
@@ -277,7 +432,7 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
         f"rows equal: {got == want}")
     if got != want or not want:
         raise AssertionError("card output differs from the CPU plain path")
-    return {"launches": launches, "wall_s": wall}
+    return {"launches": launches, "k5_launches": k5, "wall_s": wall}
 
 
 def _dna(rng, n: int) -> str:
@@ -313,7 +468,7 @@ def _adapter_reads(rng, adapter: str, n: int, lo: int, hi: int) -> list[str]:
     return out
 
 
-def _k6_rows(reads, adapter: str, sort: bool = False):
+def _k6_rows(reads, adapter: str):
     """One kernel chunk of ``reads`` on the card: (text, lens, peq, m)."""
     import torch
 
@@ -322,8 +477,7 @@ def _k6_rows(reads, adapter: str, sort: bool = False):
     from sctagger_tpu_torch.ops.myers import build_peq_multi
 
     lens = np.array([len(r) for r in reads])
-    idx = np.argsort(lens, kind="stable") if sort else np.arange(len(reads))
-    text, ln, junk = ac.pack_chunk(reads, idx, int(lens.max()))
+    text, ln, junk = ac.pack_chunk(reads, np.arange(len(reads)), int(lens.max()))
     assert not junk.any()
     peq = ac.prep_peq(build_peq_multi(np.stack(
         [encode_str(adapter), encode_str(_rev_compl(adapter))])))
@@ -332,26 +486,13 @@ def _k6_rows(reads, adapter: str, sort: bool = False):
             len(adapter))
 
 
-def k6_timed_chunk(rng):
-    """One realistic K6 chunk: 16,384 length-sorted reads of 1,000-3,000 bp
-    with the adapter at 0-19 under 5% substitutions (the main path's
-    reads)."""
-    reads = []
-    for _ in range(16_384):
-        t = _dna(rng, int(rng.integers(1000, 3000)))
-        a = "".join(c if rng.random() >= 0.05 else "ACGT"[int(rng.integers(4))]
-                    for c in ADAPTER)
-        p = int(rng.integers(0, 20))
-        reads.append(t[:p] + a + t[p:])
-    return _k6_rows(reads, ADAPTER, sort=True)
-
-
 def check_adapter_kernel() -> dict:
     """Phase 3b: K6 == adapter_scan_ref on the card (full rows, exact), then
-    the timed realistic chunk."""
+    the timed realistic chunk (the one tools.roofline reads K6 on)."""
     import torch
 
     from sctagger_tpu_torch.ops import adapter_cuda as ac
+    from sctagger_tpu_torch.tools import cuda_ms, gpu_line, roofline
 
     rng = np.random.default_rng(3)
     adapters = {22: ADAPTER, 31: ADAPTER + "AGTCAGGTA", 32: ADAPTER + "AGTCAGGTAC"}
@@ -382,7 +523,7 @@ def check_adapter_kernel() -> dict:
         if "> 4 ends" in name and over == 0:
             raise AssertionError(f"no read with > 4 ends in case {name}")
 
-    args = k6_timed_chunk(rng)
+    args = roofline.adapter_chunk(torch.device("cuda"))
     got = ac.adapter_scan(*args)
     ref = ac.adapter_scan_ref(*args)
     torch.cuda.synchronize()
@@ -390,8 +531,8 @@ def check_adapter_kernel() -> dict:
     worst = max(worst, err)
     if not torch.equal(got, ref):
         raise AssertionError("K6 disagrees with adapter_scan_ref (timed chunk)")
-    ms = _cuda_ms(lambda: ac.adapter_scan(*args), reps=20)
-    plain_ms = _cuda_ms(lambda: ac.adapter_scan_ref(*args), reps=1)
+    ms = cuda_ms(lambda: ac.adapter_scan(*args), reps=20)
+    plain_ms = cuda_ms(lambda: ac.adapter_scan_ref(*args), reps=1)
     log(f"[k6] chunk of 16,384 reads x 1,000-3,000 bp ({args[0].shape[1]} "
         f"bytes/row): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
         f"max_abs_err={err} ({gpu_line()})")
@@ -412,6 +553,7 @@ def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
     from sctagger_tpu_torch import cli
     from sctagger_tpu_torch.ops import adapter_cuda as ac
     from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.tools import gpu_line
 
     fq = tmp / "lr.fastq"
     t0 = time.perf_counter()
@@ -481,6 +623,73 @@ def check_stage1_output(tmp: pathlib.Path) -> None:
         raise AssertionError("extract_lr_bc on the card differs from the CPU")
 
 
+def entry_path() -> int:
+    """Phase 4c: the port's entry() on the card (K4), output == the CPU
+    plain version's. Returns K4's launches."""
+    import torch
+
+    from sctagger_tpu_torch import entry
+    from sctagger_tpu_torch.ops import match_cuda as mc
+
+    mc.MIN_LAUNCHES = 0
+    fn, args = entry.entry()
+    got = fn(*args)
+    torch.cuda.synchronize()
+    launches = mc.MIN_LAUNCHES
+    want = fn(*(a.cpu() for a in args))
+    ok = (got.device.type == "cuda" and tuple(got.shape) == (1, 128)
+          and torch.equal(got.cpu(), want))
+    log(f"[entry] fn(*example_args) on {got.device}: shape {tuple(got.shape)}, "
+        f"first 8 {got[0, :8].tolist()}, K4 launches {launches}; == CPU: {ok}")
+    if not ok or launches == 0:
+        raise AssertionError("entry() on the card differs from the CPU or ran no K4")
+    return launches
+
+
+def profile_path() -> dict:
+    """Phase 4d: tools.profile_match on the card (K4, K5, K3). Returns each
+    kernel's launches."""
+    import torch
+
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.tools import gpu_line, profile_match
+
+    mc.MIN_LAUNCHES = mc.BEST_LAUNCHES = mc.TIES_LAUNCHES = 0
+    res = profile_match.run(torch.device("cuda"), reps=2)
+    torch.cuda.synchronize()
+    launches = {"match_min": mc.MIN_LAUNCHES, "match_best": mc.BEST_LAUNCHES,
+                "match_ties": mc.TIES_LAUNCHES}
+    log(f"[profile] {json.dumps(res)}; launches {launches} ({gpu_line()})")
+    if not all(launches.values()):
+        raise AssertionError(f"profile_match launched no kernel of {launches}")
+    return launches
+
+
+def roofline_path() -> dict:
+    """Phase 4e: tools.roofline on the card (K7, K1, K6). Returns its JSON
+    object and K7's launches."""
+    import math
+
+    import torch
+
+    from sctagger_tpu_torch.ops import micro_cuda as mic
+    from sctagger_tpu_torch.tools import roofline
+
+    mic.LAUNCHES = 0
+    res = roofline.run(torch.device("cuda"))
+    torch.cuda.synchronize()
+    launches = mic.LAUNCHES
+    log(f"[roofline] {json.dumps(res)}")
+    ceil = res["ceiling"]["ops_per_s"]
+    shares = {k: v["share_of_ceiling"] for k, v in res["kernels"].items()}
+    log(f"[roofline] int32 ceiling {ceil / 1e12:.3f} T source ops/s (best of "
+        f"chains 1/2/4/8); shares of it: {shares}; K7 launches {launches}")
+    if launches == 0 or not math.isfinite(ceil) or ceil <= 0 or not all(
+            math.isfinite(s) and s > 0 for s in shares.values()):
+        raise AssertionError("roofline gave no ceiling or no shares")
+    return {"launches": launches, "roofline": res}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", type=int, default=1_048_576,
@@ -498,12 +707,15 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
-    if not all((ROOT / f).exists() for f in (KERNEL_SRC, ADAPTER_SRC, "bench.py")):
+    if not all((ROOT / f).exists() for f in (KERNEL_SRC, ADAPTER_SRC, MICRO_SRC,
+                                             "bench.py")):
         print(f"chip_smoke: {ROOT} is not a checkout of the repository",
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
+    from sctagger_tpu_torch.tools import gpu_line
+
     gpu = gpu_line()
     log(f"[device] {gpu}; torch {torch.__version__} cuda {torch.version.cuda}")
 
@@ -520,12 +732,19 @@ def main(argv=None) -> int:
     log(f"[build] host library: {time.perf_counter() - t0:.1f}s")
 
     timing = check_kernels()
-    check_device_paths()
+    k5_escalation = check_device_paths()
     k6 = check_adapter_kernel()
+    variants = check_match_variants()
+    k7 = check_micro()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         res = main_path(args.segments, pathlib.Path(tmp))
         res_lr = stage1_main_path(args.lr_reads, pathlib.Path(tmp))
         check_stage1_output(pathlib.Path(tmp))
+    k4_entry = entry_path()
+    prof = profile_path()
+    roof = roofline_path()
+    launches = {"match_min": k4_entry, "match_best": k5_escalation,
+                "match_ties": prof["match_ties"]}
 
     log(json.dumps({"kernels": [{
         "name": "match_full",
@@ -545,6 +764,20 @@ def main(argv=None) -> int:
         "max_abs_err": k6["max_abs_err"],
         "ms": k6["ms"],
         "plain_ms": k6["plain_ms"],
+    }] + [{
+        "name": name,
+        "route": "cuda",
+        "source": KERNEL_SRC,
+        "replaces": VARIANT_REPLACES[name],
+        "launches": launches[name],
+        **variants[name],
+    } for name in VARIANT_REPLACES] + [{
+        "name": "myers_micro",
+        "route": "cuda",
+        "source": MICRO_SRC,
+        "replaces": MICRO_REPLACES,
+        "launches": roof["launches"],
+        **k7,
     }]}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

@@ -8,11 +8,12 @@ distance <= 1 by the host prefilter (ops/exact_prefilter.py) never reach the
 device; the rest are length-sorted, repacked into chunks of up to
 PASS1_CHUNK reads, and swept by the fused kernel (ops/match_cuda.py), whose
 rows carry each read's min distance, tie count and first TIES_K tie ids.
-Reads with more than TIES_K ties escalate to a plain-torch best matrix.
+Reads with more than TIES_K ties escalate to a full best matrix
+(match_best) and a top-k over it.
 
-One dispatch loop serves every device: on CUDA the kernel runs, on the CPU
-its plain version (the same rows). Patterns longer than 32 bp take the
-multi-word plain version on every device (the kernel is single-word).
+One dispatch loop serves every device: on CUDA the kernels run, on the CPU
+their plain versions (the same rows). Patterns longer than 32 bp take the
+multi-word plain version on every device (the kernels are single-word).
 """
 
 from __future__ import annotations
@@ -43,6 +44,7 @@ from ..ops.match_cuda import (
     BIG,
     DEF_BR,
     TIES_K,
+    match_best,
     match_full,
     match_full_dynls,
     match_full_mw_ref,
@@ -53,7 +55,6 @@ from ..ops.myers import (
     MAX_PATTERN_LEN,
     build_peq_multi,
     build_peq_multi_mw,
-    match_best,
     match_best_mw_t,
 )
 from ..runtime import resolve_device
@@ -186,7 +187,8 @@ def match_segments(
 
     ``device`` is where the sweep runs (default: runtime.default_device()).
     ``stats`` (an observability StageStats) receives the read counts of the
-    prefilter and the device sweep, and the main thread's time waiting for
+    prefilter, the device sweep and the > TIES_K escalation
+    (``escalated_reads``), and the main thread's time waiting for
     host prep (``match.prep_wait``), for the device (``match.device_wait``)
     and in tie assembly (``match.ties``)."""
     dev = resolve_device(device)
@@ -411,9 +413,6 @@ def match_segments(
             f"{counts['device_chunks']} chunks on {dev.type}",
             file=sys.stderr,
         )
-    if stats is not None:
-        for k, v in counts.items():
-            stats.count(k, v)
 
     with _timer("match.ties"):
         matched = np.flatnonzero(min_dist <= max_error)
@@ -460,7 +459,11 @@ def match_segments(
 
         if overflow_meta:
             _escalate_ties(overflow_meta, peq, min_dist, bl, n_pat, overflow, dev)
+        counts["escalated_reads"] = len(overflow_meta)
 
+    if stats is not None:
+        for k, v in counts.items():
+            stats.count(k, v)
     return MatchResult(
         rids=matched.astype(np.int64),
         dists=min_dist[matched],
@@ -471,8 +474,8 @@ def match_segments(
 
 
 def _escalate_ties(overflow_meta, peq, min_dist, bl, n_pat, overflow, dev) -> None:
-    """Reads whose tie set exceeds TIES_K: full best matrix + tie lists, in
-    plain torch on ``dev`` (such reads are rare)."""
+    """Reads whose tie set exceeds TIES_K: full best matrix + tie lists on
+    ``dev``, PASS2_CHUNK reads at a time (such reads are rare)."""
     ls = max(c.shape[0] for _, c in overflow_meta)
     codes = full_fast((len(overflow_meta), ls), CODE_PAD, np.uint8)
     for i, (_rid, c) in enumerate(overflow_meta):
@@ -524,20 +527,24 @@ def _collect_ties(best_t, target_np, sub, n_pat: int, ties: dict) -> None:
 
 
 def _best_matrix_t(seg_codes: np.ndarray, peq: np.ndarray, m: int, dev) -> torch.Tensor:
-    """(P, Rc) int8 best-distance matrix on ``dev``, pattern-chunked.
+    """(P, Rc) int8 best-distance matrix on ``dev``, clamped at 127.
 
-    ``peq`` is (5, P) single-word or (W, 5, P) multi-word."""
-    seg_T = torch.from_numpy(np.ascontiguousarray(seg_codes.T)).to(dev)
-    mw = peq.ndim == 3
+    ``peq`` is (5, P) single-word or (W, 5, P) multi-word. The single-word
+    table goes through match_best (the K5 kernel on a CUDA device, its plain
+    version on the CPU); the patterns it pads are sliced back off. The
+    multi-word table takes the plain multi-word sweep, pattern-chunked, on
+    every device: no kernel exists for it."""
     P = peq.shape[-1]
+    if peq.ndim == 2:
+        ls = seg_codes.shape[1]
+        seg_T = torch.from_numpy(prep_segs_T(seg_codes, ls=ls, br=1)).to(dev)
+        peq_pm = torch.from_numpy(prep_peq_cols(peq)).to(dev)
+        return match_best(seg_T, peq_pm, m)[:P]
+    seg_T = torch.from_numpy(np.ascontiguousarray(seg_codes.T)).to(dev)
     cols = []
     for s, e in batch_iter(P, 4096):
-        if mw:
-            blk = torch.from_numpy(np.ascontiguousarray(peq[:, :, s:e])).to(dev)
-            cols.append(match_best_mw_t(seg_T, blk, m).T)
-        else:
-            blk = torch.from_numpy(np.ascontiguousarray(peq[:, s:e])).to(dev)
-            cols.append(match_best(seg_T, blk, m))
+        blk = torch.from_numpy(np.ascontiguousarray(peq[:, :, s:e])).to(dev)
+        cols.append(match_best_mw_t(seg_T, blk, m).T)
     # clamp before the int8 cast (distances can reach m; mr < 127 in
     # practice, so the clamp cannot collide with a real target)
     return torch.cat(cols, dim=1).clamp(max=127).to(torch.int8).T

@@ -28,6 +28,7 @@ _PKG = pathlib.Path(__file__).resolve().parents[1]
 _SRCS = {
     "match_full": _PKG / "csrc" / "match_full.cu",
     "adapter_scan": _PKG / "csrc" / "adapter_scan.cu",
+    "myers_micro": _PKG / "csrc" / "myers_micro.cu",
 }
 BUILD_DIR = _PKG.parent / "build" / "sctagger_tpu_torch"
 NVCC_FLAGS = [
@@ -36,20 +37,36 @@ NVCC_FLAGS = [
 ]
 
 _vp, _i32 = ctypes.c_void_p, ctypes.c_int
-# C signature of each library's entry point
+_MATCH_ARGS = [
+    _vp, _i32, _i32,  # seg, ls, r_pad
+    _vp, _i32,  # peq, p_pad
+    _vp, _i32,  # maxlens, mlen_block
+    _vp, _i32,  # target, m
+    _i32, _vp, _vp,  # tiles_per_split, partial, out
+    _vp,  # stream
+]
+# C signature of each entry point, by library
 _SIGNATURES = {
-    "match_full": ("sctag_match_full", [
-        _vp, _i32, _i32,  # seg, ls, r_pad
-        _vp, _i32,  # peq, p_pad
-        _vp, _i32, _i32,  # maxlens, mlen_block, m
-        _i32, _vp, _vp,  # tiles_per_split, partial, out
-        _vp,  # stream
-    ]),
-    "adapter_scan": ("sctag_adapter_scan", [
-        _vp, _i32, _i32,  # text, b, row_bytes
-        _vp, _vp, _i32,  # lens, peq (host), m
-        _vp, _vp,  # out, stream
-    ]),
+    "match_full": {
+        "sctag_match_full": _MATCH_ARGS,  # K1, K2
+        "sctag_match_min": _MATCH_ARGS,  # K4
+        "sctag_match_best": _MATCH_ARGS,  # K5
+        "sctag_match_ties": _MATCH_ARGS,  # K3
+    },
+    "adapter_scan": {
+        "sctag_adapter_scan": [
+            _vp, _i32, _i32,  # text, b, row_bytes
+            _vp, _vp, _i32,  # lens, peq (host), m
+            _vp, _vp,  # out, stream
+        ],
+    },
+    "myers_micro": {
+        "sctag_myers_micro": [
+            _vp, _i32, _i32,  # x, n, iters
+            _i32, _i32,  # chains, grid
+            _vp, _vp,  # out, stream
+        ],
+    },
 }
 
 _lock = threading.Lock()
@@ -116,13 +133,13 @@ def build_host() -> pathlib.Path:
 
 def load(name: str) -> ctypes.CDLL:
     """The library of source ``name`` (a key of _SRCS), built on first use,
-    with its C signature set."""
+    with the C signatures of its entry points set."""
     with _lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(build()[name]))
-            fn_name, argtypes = _SIGNATURES[name]
-            fn = getattr(lib, fn_name)
-            fn.restype = _i32
-            fn.argtypes = argtypes
+            for fn_name, argtypes in _SIGNATURES[name].items():
+                fn = getattr(lib, fn_name)
+                fn.restype = _i32
+                fn.argtypes = argtypes
             _libs[name] = lib
         return _libs[name]

@@ -22,6 +22,11 @@ MODULES = [
     "sctagger_tpu_torch.models.adapter",
     "sctagger_tpu_torch.stages.match_trie",
     "sctagger_tpu_torch.stages.extract_lr_bc",
+    "sctagger_tpu_torch.ops.micro_cuda",
+    "sctagger_tpu_torch.entry",
+    "sctagger_tpu_torch.tools",
+    "sctagger_tpu_torch.tools.profile_match",
+    "sctagger_tpu_torch.tools.roofline",
 ]
 
 

@@ -14,6 +14,7 @@ import torch
 import sctagger_tpu_torch.models.matcher as tmatch
 from sctagger_tpu.core.packing import rev_compl
 from sctagger_tpu.models import matcher as jmatch
+from sctagger_tpu.observability import StageStats
 
 torch.set_num_threads(1)
 
@@ -128,6 +129,24 @@ def test_uniform_chunks_take_match_full(monkeypatch):
         got = _summary(tmatch.match_segments(reads, bcs, max_error=2, device="cpu"))
         assert got == want
         assert (calls["match_full"], calls["match_full_dynls"]) == want_calls
+
+
+@pytest.mark.parametrize("prefilter", ["0", "1"])
+def test_stats_count_escalated_reads(prefilter, monkeypatch):
+    """``escalated_reads`` is the number of device-swept matched reads with
+    more than TIES_K ties (prefilter-resolved reads carry full tie sets and
+    never escalate)."""
+    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", prefilter)
+    segs, bcs = _inputs(16, 2, seed=5)
+    stats = StageStats("match")
+    r = tmatch.match_segments(segs, bcs, max_error=2, device="cpu", stats=stats)
+    over = int((r.tie_counts > tmatch.TIES_K).sum())
+    c = stats.counters
+    assert c["prefilter_resolved"] + c["device_reads"] == len(segs)
+    if prefilter == "0":
+        assert c["escalated_reads"] == over > 0
+    else:
+        assert 0 <= c["escalated_reads"] <= over
 
 
 def test_match_context_from_jax_arrays(monkeypatch):
