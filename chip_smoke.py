@@ -55,7 +55,31 @@ Phases, each fatal on failure:
   5. output checks: the first 4,096 LR rows of `match_trie` rerun through the
      plain path on the CPU must give byte-identical rows; a 20,000-read
      `extract_lr_bc` run (plus reads with N and one with > 4 ends, through
-     MASK on the card) on the card and on the CPU must write identical TSVs.
+     MASK on the card) on the card and on the CPU must write identical TSVs,
+     and so must its checkpointed runs (SCTAG_CHECKPOINT_BATCH=5000, five
+     batches) on the card (K6 SLOTS and MASK launched) and on the CPU.
+  6. the stage-2 paths, checkpoint/resume, the runner and the trace, each
+     with its launch counts set to 0 just before it and read just after:
+     - `extract_sr_bc` (host C++, no device work) on a 2,000,000-alignment
+       BAM (tools/measure_reference.make_sr_bam): plain, checkpointed over
+       >= 4 byte ranges (SCTAG_SR_BATCH_BYTES), and resumed after deleting
+       one part: equal TSVs, only the deleted part written again;
+     - `extract_sr_bc_from_lr` on 1,000,000 LR rows against a 3,000,000-row
+       whitelist (make_alt_fixture): the host probe, the device probe on
+       the card, the device probe on the first 50,000 rows under
+       SCTAG_DEVICE=cpu against the card on the same rows, and a
+       checkpointed run in 4 batches: equal TSVs; both probes' walls;
+     - checkpointed `match_trie` on the flagship inputs of phase 4
+       (SCTAG_CHECKPOINT_BATCH=262144: 4 batches): its TSV equals the
+       un-checkpointed run's; after deleting one part, 3 batches skipped and
+       1 computed, same bytes; K1/K2 launches and both walls;
+     - the runner (`pipeline.runner.run_config`, --from-lr-only) on a
+       5,000-read sample with a 1,000-barcode whitelist, on the card (K6
+       SLOTS and K1/K2 launched) and under SCTAG_DEVICE=cpu: the three
+       artifacts equal; a second call skips every rule;
+     - SCTAG_PROFILE around a 4,096-row `match_trie` run: the trace names
+       the match_full kernel (its CUDA kernel `match_sweep` and the
+       `sctag_match_full` range).
 
 The line before the last is a JSON object with the kernel table; the last
 line is {"ok": true, "device": {...}}. Exits nonzero, printing no result,
@@ -65,6 +89,8 @@ without CUDA or outside a checkout of the repository.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gzip
 import json
 import os
 import pathlib
@@ -95,6 +121,11 @@ VARIANT_REPLACES = {
 MICRO_REPLACES = "tools/roofline.py:114 (measure_vpu_bound.run_c; body _micro_kernel :55)"
 ADAPTER = "CTACACGACGCTCTTCCGATCT"
 LR_CHECK_READS = 20_000
+LR_CKPT_BATCH = 5000
+SR_ALNS = 2_000_000  # the repo's `sr` shape
+ALT_ROWS, ALT_WHITELIST, ALT_HEAD = 1_000_000, 3_000_000, 50_000  # `alt_3m`
+MATCH_CKPT_BATCH = 262_144
+RUNNER_READS, RUNNER_WHITELIST = 5000, 1000
 REPLACES = (
     "sctagger_tpu/ops/match_pallas.py:207 (_match_full_kernel via "
     "match_full_tpu :357) + :260 (_match_full_dynls_kernel via "
@@ -104,6 +135,33 @@ REPLACES = (
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+@contextlib.contextmanager
+def _env(**kv):
+    """Set environment variables for the body, then restore them."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def _need_launches(counts: dict, path: str) -> None:
+    """Fail unless every kernel in ``counts`` launched in the run of ``path``."""
+    idle = [k for k, n in counts.items() if n == 0]
+    if idle:
+        raise AssertionError(f"{path} launched no {', '.join(idle)}")
+
+
+def _stats(path: pathlib.Path) -> dict:
+    """The last SCTAG_STATS record in ``path``."""
+    return json.loads(path.read_text().splitlines()[-1])
 
 
 def _timed_once(fn):
@@ -418,7 +476,7 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, k5 = mc.LAUNCHES, mc.BEST_LAUNCHES
-    st = json.loads(stats_path.read_text().splitlines()[-1])
+    st = _stats(stats_path)
     c = st["counters"]
     log(f"[main] match_trie wall {wall:.3f}s = {n_segments / wall:.1f} "
         f"segments/s ({gpu_line()}); stage timers {st['timers_s']}")
@@ -452,7 +510,8 @@ def main_path(n_segments: int, tmp: pathlib.Path) -> dict:
         f"rows equal: {got == want}")
     if got != want or not want:
         raise AssertionError("card output differs from the CPU plain path")
-    return {"launches": launches, "k5_launches": k5, "wall_s": wall}
+    return {"launches": launches, "k5_launches": k5, "wall_s": wall, "lr": lr,
+            "sr": sr, "out": out, "head": head}
 
 
 def _dna(rng, n: int) -> str:
@@ -650,14 +709,8 @@ def check_adapter_mask() -> dict:
             "chars": int(args[1].sum()), "bytes": _nbytes(args[0], args[1], d, bits)}
 
 
-def _lr_stats(stats_path: pathlib.Path) -> dict:
-    return json.loads(stats_path.read_text().splitlines()[-1])
-
-
 def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
     """Phase 4b: extract_lr_bc through the CLI on the card."""
-    import gzip
-
     import torch
 
     import measure_reference
@@ -681,7 +734,7 @@ def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, mask_launches = ac.LAUNCHES, ac.MASK_LAUNCHES
-    t = _lr_stats(stats_path)["timers_s"]
+    t = _stats(stats_path)["timers_s"]
     resolved = sum(t.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
     plain = int(t.get("scan.mask_reads", 0))
     log(f"[lr] extract_lr_bc wall {wall:.3f}s = {n_reads / wall:.1f} reads/s "
@@ -707,9 +760,8 @@ def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
 
 
 def check_stage1_output(tmp: pathlib.Path) -> None:
-    """Phase 5b: the whole stage on the card and on the CPU, same TSV."""
-    import gzip
-
+    """Phase 5b: the whole stage on the card and on the CPU, same TSV, and
+    its checkpointed runs too."""
     import measure_reference
     from sctagger_tpu_torch import cli
     from sctagger_tpu_torch.ops import adapter_cuda as ac
@@ -741,6 +793,29 @@ def check_stage1_output(tmp: pathlib.Path) -> None:
     log(f"[check] card TSV == CPU TSV: {tsv['cuda'] == tsv['cpu']} ({n} rows)")
     if tsv["cuda"] != tsv["cpu"] or n != LR_CHECK_READS + len(extra):
         raise AssertionError("extract_lr_bc on the card differs from the CPU")
+    for dev in ("cuda", "cpu"):  # checkpointed: scan_adapters per 5,000 reads
+        ckpt = tmp / f"ckpt_lr_{dev}"
+        out = tmp / f"lr_check_ckpt_{dev}.tsv.gz"
+        with _env(SCTAG_CHECKPOINT_DIR=str(ckpt),
+                  SCTAG_CHECKPOINT_BATCH=str(LR_CKPT_BATCH)):
+            ac.LAUNCHES = ac.MASK_LAUNCHES = 0
+            t0 = time.perf_counter()
+            extract_lr_bc.run(
+                cli.parse_args(["extract_lr_bc", "-r", str(fq), "-o", str(out)]),
+                device=dev,
+            )
+            wall = time.perf_counter() - t0
+            slots, mask = ac.LAUNCHES, ac.MASK_LAUNCHES
+        parts = len(list(ckpt.glob("extract_lr_bc_scan-*/part*.npz")))
+        same = gzip.decompress(out.read_bytes()) == tsv["cuda"]
+        log(f"[ckpt] extract_lr_bc on {dev}, {parts} batches of {LR_CKPT_BATCH}: "
+            f"{wall:.1f}s, K6 SLOTS launches {slots}, MASK launches {mask}; TSV == "
+            f"the streamed run's: {same}")
+        if not same or parts != -(-n // LR_CKPT_BATCH):
+            raise AssertionError(f"checkpointed extract_lr_bc on {dev} differs")
+        if dev == "cuda":
+            _need_launches({"adapter_scan": slots, "adapter_mask": mask},
+                           "checkpointed extract_lr_bc")
 
 
 def entry_path() -> int:
@@ -810,6 +885,280 @@ def roofline_path() -> dict:
     return {"launches": launches, "roofline": res}
 
 
+def check_sr_stage(tmp: pathlib.Path, n_alns: int = SR_ALNS) -> dict:
+    """Phase 6a: extract_sr_bc (host C++) through the CLI: plain, then
+    checkpointed over >= 4 compressed byte ranges, then resumed after
+    deleting one part. All TSVs equal; the resume writes only that part."""
+    import measure_reference
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.tools import gpu_line
+
+    t0 = time.perf_counter()
+    bam = measure_reference.make_sr_bam(tmp, n_alns)
+    size = os.path.getsize(bam)
+    log(f"[sr] input: {n_alns:,} alignments, {size:,} bytes of BAM "
+        f"({time.perf_counter() - t0:.1f}s to generate)")
+    stats_path = tmp / "stats_sr.jsonl"
+    walls = {}
+
+    def _run(tag: str) -> bytes:
+        out = tmp / f"sr_{tag}.tsv.gz"
+        t0 = time.perf_counter()
+        cli.main(["extract_sr_bc", "-i", bam, "-o", str(out)])
+        walls[tag] = time.perf_counter() - t0
+        st = _stats(stats_path)
+        log(f"[sr] extract_sr_bc {tag}: wall {walls[tag]:.3f}s = "
+            f"{n_alns / walls[tag]:,.0f} alignments/s ({gpu_line()}); stage "
+            f"timers {st['timers_s']}; counters {st['counters']}")
+        return gzip.decompress(out.read_bytes())
+
+    ckpt = tmp / "ckpt_sr"
+    with _env(SCTAG_STATS=str(stats_path)):
+        want = _run("plain")
+        with _env(SCTAG_CHECKPOINT_DIR=str(ckpt), SCTAG_SR_BATCH_BYTES=str(size // 4)):
+            got = _run("checkpointed")
+            parts = sorted(ckpt.glob("extract_sr_bc-*/part*.npz"))
+            gone = parts[1]
+            gone.unlink()
+            kept = {q: q.stat().st_mtime_ns for q in parts if q != gone}
+            resumed = _run("resumed")
+    untouched = all(q.stat().st_mtime_ns == t for q, t in kept.items())
+    log(f"[sr] {len(parts)} byte ranges; resume rewrote {gone.name}: "
+        f"{gone.exists()}, other parts untouched: {untouched}; TSVs equal: "
+        f"{want == got == resumed} ({len(want.splitlines())} barcodes)")
+    if len(parts) < 4 or not (want == got == resumed) or not want:
+        raise AssertionError("checkpointed extract_sr_bc differs from the plain run")
+    if not gone.exists() or not untouched:
+        raise AssertionError("the extract_sr_bc resume did not rewrite exactly one part")
+    return walls
+
+
+def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
+                    n_wl: int = ALT_WHITELIST, n_head: int = ALT_HEAD) -> dict:
+    """Phase 6b: extract_sr_bc_from_lr with the host probe and with the
+    device probe on the card; the device probe on the first ``n_head`` rows
+    under SCTAG_DEVICE=cpu against the card; a checkpointed run in 4
+    batches. All TSVs equal. Returns the walls and probe times."""
+    import measure_reference
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.stages import extract_sr_bc_from_lr
+    from sctagger_tpu_torch.tools import gpu_line
+
+    sub = tmp / "alt"
+    sub.mkdir()
+    t0 = time.perf_counter()
+    wl_n = measure_reference.make_alt_fixture(sub, n_rows, n_wl)
+    wl, lr = sub / "wl.txt.gz", sub / "lr.tsv"
+    head = sub / "lr_head.tsv"
+    with open(lr) as src, open(head, "w") as dst:
+        for _ in range(n_head):
+            dst.write(src.readline())
+    log(f"[alt] input: {n_rows:,} LR rows against {wl_n:,} whitelist barcodes "
+        f"({time.perf_counter() - t0:.1f}s to generate)")
+    stats_path = sub / "stats.jsonl"
+    res = {}
+
+    def _run(tag: str, probe: str, rows: pathlib.Path, device=None) -> bytes:
+        out = sub / f"{tag}.tsv.gz"
+        with _env(SCTAG_PROBE=probe, SCTAG_STATS=str(stats_path)):
+            t0 = time.perf_counter()
+            extract_sr_bc_from_lr.run(cli.parse_args(
+                ["extract_sr_bc_from_lr", "-i", str(rows), "-wl", str(wl),
+                 "-o", str(out)]), device=device)
+            wall = time.perf_counter() - t0
+        st = _stats(stats_path)
+        res[tag] = {"wall_s": wall, "probe_s": st["timers_s"]["probe"]}
+        log(f"[alt] {tag} ({probe} probe): wall {wall:.3f}s, probe "
+            f"{st['timers_s']['probe']:.3f}s ({gpu_line()}); stage timers "
+            f"{st['timers_s']}; counters {st['counters']}")
+        return gzip.decompress(out.read_bytes())
+
+    host = _run("host", "host", lr)
+    card = _run("device", "device", lr, "cuda")
+    with _env(SCTAG_DEVICE="cpu"):
+        head_cpu = _run("head_cpu", "device", head)
+    head_card = _run("head_card", "device", head, "cuda")
+    ckpt = sub / "ckpt"
+    with _env(SCTAG_CHECKPOINT_DIR=str(ckpt),
+              SCTAG_CHECKPOINT_BATCH=str(-(-n_rows // 4))):
+        checkpointed = _run("checkpointed", "device", lr, "cuda")
+    parts = len(list(ckpt.glob("extract_sr_bc_from_lr_scan-*/part*.npz")))
+    log(f"[alt] host == device: {host == card}; checkpointed ({parts} batches) "
+        f"== host: {checkpointed == host}; first {n_head:,} rows, CPU == card: "
+        f"{head_cpu == head_card}; {len(host.splitlines())} barcodes written; walls "
+        f"host {res['host']['wall_s']:.3f}s vs device {res['device']['wall_s']:.3f}s "
+        f"({gpu_line()})")
+    if not host or host != card or host != checkpointed or parts != 4:
+        raise AssertionError("extract_sr_bc_from_lr differs between probes or batches")
+    if not head_cpu or head_cpu != head_card:
+        raise AssertionError("the device probe on the CPU differs from the card")
+    return res
+
+
+def check_match_checkpoint(main: dict, tmp: pathlib.Path) -> dict:
+    """Phase 6c: the un-checkpointed flagship match_trie again (warm, as the
+    checkpointed runs are), then checkpointed in 4 batches, then a resume
+    after deleting one part: same bytes as phase 4's run, 1 batch computed
+    and 3 skipped on the resume."""
+    import torch
+
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.tools import gpu_line
+
+    want = main["out"].read_bytes()
+    ckpt = tmp / "ckpt_mt"
+    stats_path = tmp / "stats_ckpt.jsonl"
+    runs = {}
+
+    def _run(tag: str):
+        out = tmp / f"out_{tag}.tsv"
+        mc.LAUNCHES = 0
+        t0 = time.perf_counter()
+        cli.main(["match_trie", "-lr", str(main["lr"]), "-sr", str(main["sr"]),
+                  "-mr", "2", "-o", str(out)])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        c = _stats(stats_path)["counters"]
+        got = out.read_bytes()
+        runs[tag] = {"wall_s": wall, "launches": mc.LAUNCHES,
+                     "computed": int(c.get("batches_computed", 0)),
+                     "skipped": int(c.get("batches_skipped", 0))}
+        log(f"[ckpt] match_trie {tag}: wall {wall:.3f}s (phase 4, cold: "
+            f"{main['wall_s']:.3f}s) ({gpu_line()}); K1/K2 launches {mc.LAUNCHES}; "
+            f"batches computed {runs[tag]['computed']}, skipped "
+            f"{runs[tag]['skipped']}; timers {_stats(stats_path)['timers_s']}; "
+            f"TSV == phase 4's: {got == want}")
+        _need_launches({"match_full": mc.LAUNCHES}, f"checkpointed match_trie ({tag})")
+        if got != want:
+            raise AssertionError(f"checkpointed match_trie ({tag}) differs")
+
+    with _env(SCTAG_STATS=str(stats_path)):
+        _run("plain")
+    with _env(SCTAG_CHECKPOINT_DIR=str(ckpt), SCTAG_STATS=str(stats_path),
+              SCTAG_CHECKPOINT_BATCH=str(MATCH_CKPT_BATCH)):
+        _run("cold")
+        parts = sorted(ckpt.glob("match_trie-*/part*.tsv"))
+        parts[2].unlink()
+        _run("resume")
+    if (len(parts), runs["cold"]["computed"]) != (4, 4) or \
+            (runs["resume"]["computed"], runs["resume"]["skipped"]) != (1, 3):
+        raise AssertionError(f"checkpointed match_trie batch counts: {runs}")
+    return runs
+
+
+def _runner_sample(tmp: pathlib.Path, n_reads: int, n_wl: int):
+    """A --from-lr-only sample like tests/test_pipeline.py's: reads of
+    prefix + adapter + whitelist barcode + tail, 40% reverse strand; the
+    adapter carries 0-4 substitutions and the barcode 0-2, so some reads
+    pass the host prefilters and reach K6 and K1."""
+    rng = np.random.default_rng(17)
+    wl = sorted({_dna(rng, 16) for _ in range(n_wl)})
+    wl_path = tmp / "runner_wl.txt.gz"
+    wl_path.write_bytes(gzip.compress(("\n".join(wl) + "\n").encode()))
+
+    def _subst(s: str, k: int) -> str:
+        b = list(s)
+        for at in rng.integers(0, len(b), k):
+            b[at] = "ACGT"[int(rng.integers(4))]
+        return "".join(b)
+
+    recs = []
+    for i in range(n_reads):
+        seq = (_dna(rng, int(rng.integers(3, 10)))
+               + _subst(ADAPTER, int(rng.integers(0, 5)))
+               + _subst(wl[int(rng.integers(len(wl)))], int(rng.integers(0, 3)))
+               + _dna(rng, int(rng.integers(30, 80))))
+        if rng.random() < 0.4:
+            seq = _rev_compl(seq)
+        recs.append(f"@r{i}\n{seq}\n+\n{'I' * len(seq)}\n")
+    fq = tmp / "runner.fastq"
+    fq.write_text("".join(recs))
+    return fq, wl_path
+
+
+def check_runner(tmp: pathlib.Path, n_reads: int = RUNNER_READS,
+                 n_wl: int = RUNNER_WHITELIST) -> dict:
+    """Phase 6d: the runner's --from-lr-only DAG (extract_lr_bc ->
+    extract_sr_bc_from_lr -> match_trie) on the card and under
+    SCTAG_DEVICE=cpu: the three artifacts equal; a second call skips every
+    rule. Returns the card run's launches and both walls."""
+    import torch
+
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.pipeline.runner import run_config
+    from sctagger_tpu_torch.tools import gpu_line
+
+    fq, wl = _runner_sample(tmp, n_reads, n_wl)
+    names = ["lr_bc", "sr_bc_from_lr", "lr_bc_from_lr_matches"]
+    arts, res = {}, {}
+    for tag, dev in (("card", "cuda"), ("cpu", "cpu")):
+        cfg = {"outpath": str(tmp / f"runner_{tag}"),
+               "samples": {"s1": {"whiltlist": str(wl), "lr_fastqs": [str(fq)]}}}
+        with _env(SCTAG_DEVICE=dev):
+            mc.LAUNCHES = ac.LAUNCHES = ac.MASK_LAUNCHES = 0
+            t0 = time.perf_counter()
+            run_config(cfg, threads=8, from_lr_only=True)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"match_full": mc.LAUNCHES, "adapter_scan": ac.LAUNCHES,
+                        "adapter_mask": ac.MASK_LAUNCHES}
+            root = tmp / f"runner_{tag}" / "s1"
+            arts[tag] = {n: gzip.decompress((root / f"s1.{n}.tsv.gz").read_bytes())
+                         for n in names}
+            res[tag] = {"wall_s": wall, "launches": launches}
+            log(f"[runner] --from-lr-only on {dev}: {n_reads} reads, {n_wl} barcodes, "
+                f"wall {wall:.3f}s ({gpu_line()}); launches {launches}; rows "
+                f"{[len(a.splitlines()) for a in arts[tag].values()]}")
+            if dev == "cuda":
+                _need_launches({k: launches[k] for k in ("match_full", "adapter_scan")},
+                               "the runner")
+                mtimes = {q: q.stat().st_mtime_ns for q in root.iterdir()}
+                mc.LAUNCHES = ac.LAUNCHES = 0
+                run_config(cfg, threads=8, from_lr_only=True)
+                skipped = ({q: q.stat().st_mtime_ns for q in root.iterdir()} == mtimes
+                           and mc.LAUNCHES == ac.LAUNCHES == 0)
+                log(f"[runner] second call skipped every rule: {skipped}")
+                if not skipped:
+                    raise AssertionError("the runner's second call reran a rule")
+    same = arts["card"] == arts["cpu"]
+    log(f"[runner] card artifacts == CPU artifacts: {same}")
+    if not same or not arts["card"]["lr_bc_from_lr_matches"]:
+        raise AssertionError("the runner on the card differs from the CPU")
+    return res
+
+
+def check_profile(main: dict, tmp: pathlib.Path) -> dict:
+    """Phase 6e: SCTAG_PROFILE around a match_trie run on the first 4,096
+    flagship rows: the Chrome trace must exist and name the match_full
+    kernel (its CUDA kernel match_sweep, its range sctag_match_full)."""
+    from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.stages import match_trie
+
+    prof = tmp / "prof"
+    mc.LAUNCHES = 0
+    with _env(SCTAG_PROFILE=str(prof)):
+        match_trie.run(cli.parse_args(
+            ["match_trie", "-lr", str(main["head"]), "-sr", str(main["sr"]),
+             "-mr", "2", "-o", str(tmp / "out_prof.tsv")]), device="cuda")
+    traces = sorted(prof.glob("match_trie.*.pt.trace.json"))
+    events = json.loads(traces[0].read_text())["traceEvents"] if traces else []
+    kernels = [e for e in events if e.get("cat") == "kernel"
+               and "match_sweep" in e.get("name", "")]
+    ranges = [e for e in events if e.get("name") == "sctag_match_full"]
+    names = sorted({e.get("name", "")[:60] for e in events if e.get("cat") == "kernel"})
+    log(f"[profile] trace {traces[0].name if traces else None}: {len(events)} events, "
+        f"match_sweep kernel events {len(kernels)} "
+        f"({sum(e.get('dur', 0) for e in kernels):.1f} us), sctag_match_full ranges "
+        f"{len(ranges)}, launches {mc.LAUNCHES}; kernel names {names[:8]}")
+    if not kernels or not ranges:
+        raise AssertionError("the profiler trace does not name the match_full kernel")
+    return {"kernel_events": len(kernels), "ranges": len(ranges)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", type=int, default=1_048_576,
@@ -828,7 +1177,8 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false", file=sys.stderr)
         return 1
     if not all((ROOT / f).exists() for f in (KERNEL_SRC, ADAPTER_SRC, MICRO_SRC,
-                                             "bench.py")):
+                                             "bench.py", "tools/measure_reference.py",
+                                             "tests/bamgen.py")):
         print(f"chip_smoke: {ROOT} is not a checkout of the repository",
               file=sys.stderr)
         return 1
@@ -858,9 +1208,15 @@ def main(argv=None) -> int:
     variants = check_match_variants()
     k7 = check_micro()
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
-        res = main_path(args.segments, pathlib.Path(tmp))
-        res_lr = stage1_main_path(args.lr_reads, pathlib.Path(tmp))
-        check_stage1_output(pathlib.Path(tmp))
+        tmp = pathlib.Path(tmp)
+        res = main_path(args.segments, tmp)
+        check_match_checkpoint(res, tmp)
+        check_profile(res, tmp)
+        res_lr = stage1_main_path(args.lr_reads, tmp)
+        check_stage1_output(tmp)
+        check_sr_stage(tmp)
+        check_alt_stage(tmp)
+        check_runner(tmp)
     k4_entry = entry_path()
     prof = profile_path()
     roof = roofline_path()

@@ -4,25 +4,33 @@ Same CLI surface and byte-identical outputs as the JAX package
 (``sctagger_tpu``), which stays in the repository as the reference each
 module of the port is tested against. This package imports torch and numpy,
 never jax and nothing of ``sctagger_tpu``: the host modules it needs
-(sequence packing, ranges, FASTQ and TSV I/O, the native host library, the
-CLI's argument surface, stage stats, plots) are copies under the same module
-names. It runs on the card; the CPU only when asked (``device="cpu"``, or
+(sequence packing, ranges, cutoffs, FASTQ, TSV and BAM I/O, the native host
+library, the part store, the CLI's argument surface, stage stats, plots) are
+copies under the same module names. It runs on the card; the CPU only when asked (``device="cpu"``, or
 ``SCTAG_DEVICE=cpu`` for the CLI).
 
-Ported so far: the ``extract_lr_bc`` and ``match_trie`` subcommands, the
-single-device ``entry()``, and the roofline and match-profile tools.
+Ported: the four subcommands (``extract_lr_bc``, ``extract_sr_bc``,
+``extract_sr_bc_from_lr``, ``match_trie``) with batch checkpoint/resume, the
+``pipeline`` runner, the ``SCTAG_PROFILE`` trace, the single-device
+``entry()``, and the roofline and match-profile tools. Not yet: more than
+one host or card (``--n-hosts > 1`` raises NotImplementedError).
 
 Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   runtime.py          device selection (cuda; cpu only when asked)
   cli.py              the argument surface and the subcommand dispatch
-  observability.py    stage stats and the progress bar
+  observability.py    stage stats, the SCTAG_PROFILE trace, the progress bar
   utils.py            PROF timers and small helpers (copy)
   plots.py            the reference's charts (copy)
   core/packing.py     sequence codes and encoders (copy)
   core/ranges.py      adapter-range detection and filtering (copy)
-  io/fastq.py, io/tsv.py  FASTQ and TSV I/O on the native library (copies)
-  native/             the g++ host library: FASTQ/TSV I/O, range search, the
-                      host adapter prefilters (copied sources) + build.py
+  core/cutoff.py      the whitelist cutoffs (copy)
+  io/fastq.py, io/tsv.py, io/bam.py  FASTQ, TSV and BAM I/O on the native
+                      library (copies)
+  native/             the g++ host library: BAM/FASTQ/TSV I/O, range search,
+                      the host adapter prefilters, the whitelist hash table
+                      and probe (copied sources) + build.py
+  pipeline/checkpoint.py  batch part files (copy)
+  pipeline/runner.py  the Snakefile-equivalent runner
   ops/myers.py        plain-torch Myers bit-vector edit distance
   ops/adapter_cuda.py the adapter-scan kernels' wrappers + plain versions
                       (slots; exact argmin mask)
@@ -31,9 +39,13 @@ Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   ops/micro_cuda.py   the int32 microkernel's wrapper + plain version
   ops/_build.py       nvcc build + ctypes binding of csrc/*.cu
   ops/exact_prefilter.py  host dist<=1 prefilter (copied, JAX-free)
+  ops/exact_lookup.py the alt stage's key table, host and device probes
+  ops/topk_count.py   count_and_rank_host (copy)
   models/adapter.py   scan_adapters(_stream): prefilter, kernel, fallbacks
   models/matcher.py   match_segments: prefilter, chunk dispatch, ties
   stages/extract_lr_bc.py the extract_lr_bc stage
+  stages/extract_sr_bc.py the extract_sr_bc stage (host C++)
+  stages/extract_sr_bc_from_lr.py the extract_sr_bc_from_lr stage
   stages/match_trie.py    the match_trie stage
   csrc/adapter_scan.cu    the hand-written Hopper (sm_90a) adapter-scan
                       kernel, two epilogues (slots; argmin mask)

@@ -1,19 +1,19 @@
 """CLI of the port: the reference's argument surface (``parse_args`` and
 ``parse_range_strings``, copied from sctagger_tpu/cli.py), dispatching the
-subcommands ported so far.
+four subcommands and the pipeline runner.
 
 Usage: python -m sctagger_tpu_torch extract_lr_bc -r READS.fq [...]
+       python -m sctagger_tpu_torch extract_sr_bc -i SR.bam [...]
+       python -m sctagger_tpu_torch extract_sr_bc_from_lr -i LR.tsv.gz -wl WL.txt.gz [...]
        python -m sctagger_tpu_torch match_trie -lr LR.tsv -sr SR.tsv [...]
+       python -m sctagger_tpu_torch pipeline -c config.yaml [--from-lr-only]
 """
 
 from __future__ import annotations
 
 import argparse
-import sys
 
 import numpy as np
-
-PORTED = ("extract_lr_bc", "match_trie")
 
 
 def parse_args(argv=None):
@@ -188,22 +188,32 @@ def parse_range_strings(range_strs):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.subcommand not in PORTED:
-        print(
-            f"{args.subcommand}: not yet ported to sctagger_tpu_torch "
-            "(use python -m sctagger_tpu)",
-            file=sys.stderr,
-        )
-        sys.exit(2)
     print(args)  # the reference echoes its arguments (scTagger.py:849)
     if args.subcommand == "extract_lr_bc":
         from .stages import extract_lr_bc
 
         extract_lr_bc.run(args)
-    else:
+    elif args.subcommand == "extract_sr_bc":
+        from .stages import extract_sr_bc
+
+        extract_sr_bc.run(args)
+    elif args.subcommand == "extract_sr_bc_from_lr":
+        from .stages import extract_sr_bc_from_lr
+
+        extract_sr_bc_from_lr.run(args)
+    elif args.subcommand == "match_trie":
         from .stages import match_trie
 
         match_trie.run(args)
+    else:
+        from .pipeline import run_pipeline
+
+        run_pipeline(
+            args.config,
+            samples=args.samples,
+            threads=args.threads,
+            from_lr_only=args.from_lr_only,
+        )
 
 
 if __name__ == "__main__":

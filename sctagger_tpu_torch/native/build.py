@@ -1,10 +1,10 @@
-"""Build/load the port's native host library (FASTQ reader/packer, TSV
-reader and writers, the pattern-range search, the host adapter prefilters).
+"""Build/load the port's native host library (BGZF+BAM reader, FASTQ
+reader/packer, TSV reader and writers, the pattern-range search, the host
+adapter prefilters, the whitelist hash table and its threaded probe).
 
 The sources in this directory are copies of the JAX package's
-(``sctagger_tpu/native``), without the BAM reader, which waits for the
-stage-2 port; ``free.cpp`` supplies the one function the readers need from
-it. They compile with g++ (plain C ABI + ctypes) at first use into
+(``sctagger_tpu/native``). They compile with g++ (plain C ABI + ctypes) at
+first use into
 ``build/sctagger_tpu_torch/`` at the repository root, under a file name
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 this library is never the JAX package's file.
@@ -22,14 +22,16 @@ import threading
 
 _DIR = pathlib.Path(__file__).resolve().parent
 _SRCS = [
+    _DIR / "bam_reader.cpp",
     _DIR / "fastq_reader.cpp",
     _DIR / "tsv_reader.cpp",
+    _DIR / "hash_table.cpp",
+    _DIR / "exact_probe.cpp",
     _DIR / "tsv_writer.cpp",
     _DIR / "range_search.cpp",
     _DIR / "adapter_d0.cpp",
     _DIR / "adapter_d1.cpp",
     _DIR / "adapter_d2.cpp",
-    _DIR / "free.cpp",
 ]
 _HDRS = [_DIR / "adapter_verify.h"]  # hashed, not compiled directly
 BUILD_DIR = _DIR.parents[1] / "build" / "sctagger_tpu_torch"
@@ -58,8 +60,9 @@ def ensure_built() -> pathlib.Path:
     os.close(fd)
     base = ["g++", *GXX_FLAGS, *map(str, _SRCS), "-o", tmp, "-lz"]
     try:
-        # libdeflate (when present) speeds up the gz TSV writer; the source
-        # detects the header, so the probe is whether the linker finds it
+        # libdeflate (when present) speeds up the BGZF inflate and the gz TSV
+        # writer; the sources detect the header, so the probe is whether the
+        # linker finds it
         try:
             subprocess.run(base + ["-ldeflate"], check=True, capture_output=True,
                            text=True)
@@ -85,6 +88,57 @@ def load():
 
 
 def _set_signatures(lib) -> None:
+    lib.sctag_extract_cb.restype = ctypes.c_int
+    lib.sctag_extract_cb.argtypes = [
+        ctypes.c_char_p,
+        ctypes.POINTER(ctypes.c_char_p),
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_char_p),
+    ]
+    lib.sctag_extract_cb_range.restype = ctypes.c_int
+    lib.sctag_extract_cb_range.argtypes = [
+        ctypes.c_char_p,
+        ctypes.c_int64,                     # comp_start
+        ctypes.c_int64,                     # comp_end (-1 = EOF)
+        ctypes.c_int64,                     # skip (prev range's spill)
+        ctypes.c_int,                       # parse_header
+        ctypes.c_int,                       # nthreads
+        ctypes.POINTER(ctypes.c_char_p),    # barcodes
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),  # counts
+        ctypes.POINTER(ctypes.POINTER(ctypes.c_int64)),  # firsts
+        ctypes.POINTER(ctypes.c_int64),     # n_unique
+        ctypes.POINTER(ctypes.c_int64),     # total
+        ctypes.POINTER(ctypes.c_int64),     # n_kept_bc
+        ctypes.POINTER(ctypes.c_int64),     # spill
+        ctypes.POINTER(ctypes.c_int64),     # found_skip (self-sync)
+        ctypes.POINTER(ctypes.c_char_p),    # error
+    ]
+    lib.sctag_file_size.restype = ctypes.c_int64
+    lib.sctag_file_size.argtypes = [ctypes.c_char_p]
+    lib.sctag_hash_build.restype = None
+    lib.sctag_hash_build.argtypes = [
+        ctypes.c_void_p,  # keys (uint32*)
+        ctypes.c_void_p,  # vals (int32*)
+        ctypes.c_int64,   # n
+        ctypes.c_int64,   # size (power of two)
+        ctypes.c_void_p,  # tkeys out
+        ctypes.c_void_p,  # tvals out (pre-filled with INT32_MIN)
+    ]
+    lib.sctag_probe_rows.restype = None
+    lib.sctag_probe_rows.argtypes = [
+        ctypes.c_void_p,  # seq_buf
+        ctypes.c_void_p,  # offs
+        ctypes.c_int64,   # n_rows
+        ctypes.c_void_p,  # tkeys
+        ctypes.c_void_p,  # tvals
+        ctypes.c_int64,   # tsize
+        ctypes.c_int,     # k
+        ctypes.c_int,     # nthreads
+        ctypes.c_void_p,  # out_counts
+        ctypes.c_void_p,  # out_single
+    ]
     lib.sctag_read_fastq.restype = ctypes.c_int
     lib.sctag_read_fastq.argtypes = [
         ctypes.c_char_p,

@@ -1,6 +1,8 @@
-"""Stage stats and progress for the port: StageStats copied from
-sctagger_tpu/observability.py, and its stage_scope without the jax.profiler
-branch, so SCTAG_PROFILE can never pull jax into the port."""
+"""Stage stats, traces and progress for the port: StageStats copied from
+sctagger_tpu/observability.py; stage_scope's SCTAG_PROFILE=<dir> trace is a
+torch.profiler trace (CPU activity, and CUDA activity when torch sees a
+card) exported into <dir> as a Chrome trace, where the JAX package takes a
+jax.profiler trace."""
 
 from __future__ import annotations
 
@@ -56,10 +58,36 @@ class StageStats:
 
 @contextlib.contextmanager
 def stage_scope(stage: str):
-    """Counters + timers around a stage body, emitted per SCTAG_STATS."""
+    """Counters + timers around a stage body, emitted per SCTAG_STATS, and
+    with SCTAG_PROFILE=<dir> a profiler trace of the body in <dir>."""
     stats = StageStats(stage)
-    yield stats
+    profile_dir = os.environ.get("SCTAG_PROFILE")
+    if profile_dir:
+        with _profiled(profile_dir, stage):
+            yield stats
+    else:
+        yield stats
     stats.emit()
+
+
+@contextlib.contextmanager
+def _profiled(profile_dir: str, stage: str):
+    """torch.profiler around the body; the trace goes to
+    <profile_dir>/<stage>.<pid>.<ns>.pt.trace.json (path on stderr)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=acts) as prof:
+        yield
+    path = os.path.join(
+        profile_dir, f"{stage}.{os.getpid()}.{time.time_ns()}.pt.trace.json"
+    )
+    prof.export_chrome_trace(path)
+    print(f"[sctagger_tpu_torch] profile trace: {path}", file=sys.stderr)
 
 
 def progress_bar(total=None, desc: str = "", unit: str = "it"):

@@ -1,0 +1,285 @@
+"""Exact multi-pattern k-mer lookup for the alt stage (torch port of
+sctagger_tpu/ops/exact_lookup.py; replaces pyahocorasick, scTagger.py:801-826).
+
+All reference patterns are fixed-length barcodes (16 bp), so Aho-Corasick
+degenerates to "is this window in the dictionary": every k-length window of
+a segment packs into one integer (2 bits/base) and probes a sorted key
+table.
+
+Dictionary semantics reproduced exactly:
+  * values: forward barcode i -> i, revcomp -> -i, added in that order with
+    later adds OVERWRITING (a word that is both some forward barcode and some
+    revcomp keeps the revcomp value, scTagger.py:803-807);
+  * a window containing any non-ACGT byte matches nothing (exact char match);
+  * per segment, >1 window hit => ambiguous (handled by the caller).
+
+Two probes, chosen by ``SCTAG_PROBE``:
+  * ``host`` (default): the native threaded hash probe over the raw segment
+    bytes (native/exact_probe.cpp);
+  * ``device``: 2-bit-packed rows up, a binary search of every window in the
+    sorted key table (``torch.searchsorted``) and the per-row reduction on
+    the device, (count, single value) per row down. Keys are int64: torch's
+    uint32 support is thin. Rows with in-sequence non-ACGT bytes cannot ride
+    the 2-bit pack; they get length 0 on the device and go through the host
+    probe.
+Neither probe falls back to the other: a failure raises.
+"""
+
+from __future__ import annotations
+
+import os
+
+import numpy as np
+import torch
+
+from ..core.packing import (
+    STRICT_TABLE,
+    encode_rows,
+    encode_seqs,
+    pack_kmers_from_codes,
+    seq_lengths,
+)
+from ..runtime import resolve_device
+from ..utils import round_up
+
+PROBE_CHUNK = 65536  # rows per device probe step, at most
+_ROW_BUDGET = 1 << 23  # rows x padded length per device step (int64 windows)
+
+
+def _revcomp_keys(keys: np.ndarray, k: int) -> np.ndarray:
+    """Numeric reverse-complement of 2-bit-packed keys (A=0,C=1,G=2,T=3, so
+    complement = 3 - code = code ^ 3): reverse the 2-bit groups with the
+    O(log w) swap ladder, realign, and XOR the complement mask. Replaces
+    building 3M rc *strings* + re-encoding them (~13 s at the 10x whitelist
+    scale, the alt-stage prep wall — VERDICT r3 #8 follow-up)."""
+    assert k <= 16, k
+    y = keys.astype(np.uint32)
+    m = np.uint32
+    y = ((y & m(0x33333333)) << m(2)) | ((y >> m(2)) & m(0x33333333))
+    y = ((y & m(0x0F0F0F0F)) << m(4)) | ((y >> m(4)) & m(0x0F0F0F0F))
+    y = ((y & m(0x00FF00FF)) << m(8)) | ((y >> m(8)) & m(0x00FF00FF))
+    y = (y << m(16)) | (y >> m(16))
+    y >>= m(32 - 2 * k)
+    return y ^ m((1 << (2 * k)) - 1)
+
+
+def _encode_uniform(words: list[str], k: int) -> np.ndarray:
+    """(n, k) STRICT codes via ONE join + LUT instead of a per-string Python
+    loop; raises ValueError on ragged/non-1-byte input (callers fall back).
+
+    Uniformity must be checked PER WORD: a ragged list whose lengths merely
+    sum to n*k (e.g. 8+14+2 with k=8) would otherwise mis-split silently
+    into wrong keys instead of reaching the host-dict fallback."""
+    if any(len(w) != k for w in words):
+        raise ValueError("ragged whitelist; use host fallback")
+    blob = "".join(words).encode("latin-1", errors="strict")
+    if len(blob) != len(words) * k:  # multi-byte chars slipped through
+        raise ValueError("non-1-byte whitelist; use host fallback")
+    return STRICT_TABLE[np.frombuffer(blob, np.uint8)].reshape(len(words), k)
+
+
+def build_key_table(words_fwd: list[str], words_rc: list[str] | None = None):
+    """Pack fwd (values +i) then rc (values -i) words; later entries win.
+
+    Returns (sorted_keys uint32, values int64). Raises ValueError if any word
+    is not pure uppercase ACGT of uniform length <= 16 (callers fall back to
+    the host dict path). ``words_rc=None`` (the production stage) derives the
+    rc keys numerically from the fwd keys — no rc strings are ever built.
+    """
+    n = len(words_fwd)
+    k = len(words_fwd[0]) if n else 0
+    if n == 0 or k == 0 or k > 16:
+        raise ValueError("empty or overlong whitelist; use host fallback")
+    if words_rc is None:
+        try:
+            codes = _encode_uniform(words_fwd, k)
+        except UnicodeEncodeError:
+            raise ValueError("non-latin-1 whitelist; use host fallback")
+        if (codes > 3).any():
+            raise ValueError("non-ACGT whitelist; use host fallback")
+        lens = np.full(n, k, np.int64)
+        fwd_keys, _ = pack_kmers_from_codes(codes, lens, k)
+        keys = np.concatenate([fwd_keys[:, 0], _revcomp_keys(fwd_keys[:, 0], k)])
+    else:
+        all_words = words_fwd + words_rc
+        codes, lens = encode_seqs(all_words, pad_to=k, table=STRICT_TABLE)
+        if (lens != k).any() or (codes > 3).any():
+            raise ValueError("non-ACGT or ragged whitelist; use host fallback")
+        keys, _ = pack_kmers_from_codes(codes, lens, k)
+        keys = keys[:, 0]
+    values = np.concatenate(
+        [np.arange(n, dtype=np.int64), -np.arange(n, dtype=np.int64)]
+    )
+    # keep-LAST duplicate semantics: reverse, then unique keeps first
+    rev_keys = keys[::-1]
+    rev_vals = values[::-1]
+    uniq, first_idx = np.unique(rev_keys, return_index=True)
+    return uniq.astype(np.uint32), rev_vals[first_idx]
+
+
+def probe_rows_packed(sorted_keys: torch.Tensor, values: torch.Tensor,
+                      packed: torch.Tensor, lens: torch.Tensor, k: int,
+                      L: int):
+    """Per-row (count, single value) of the k-windows of 2-bit-packed rows
+    (JAX: ``_probe_rows_packed``), on the tensors' device.
+
+    sorted_keys (K,) int64 ascending, values (K,) int64; packed (n, L // 4)
+    uint8 with char 4j + t in bits 2t..2t+1 of byte j; lens (n,) int32, a
+    row's windows past its length never hit. Window keys put the window's
+    first char in the top bits, as the key table does. Returns (count,
+    single_val) int32, single_val the hit's value when count == 1, else 0.
+    """
+    n = packed.shape[0]
+    shifts = torch.arange(0, 8, 2, dtype=torch.uint8, device=packed.device)
+    codes = ((packed[:, :, None] >> shifts) & 3).reshape(n, -1)[:, :L]
+    w = L - k + 1
+    key = torch.zeros((n, w), dtype=torch.int64, device=packed.device)
+    for i in range(k):  # rolling keys, char 0 in the top bits
+        key = (key << 2) | codes[:, i : w + i]
+    pos = torch.arange(w, dtype=torch.int32, device=packed.device)
+    valid = (pos[None, :] + k) <= lens[:, None]
+    at = torch.searchsorted(sorted_keys, key).clamp_(max=sorted_keys.numel() - 1)
+    hit = (sorted_keys[at] == key) & valid
+    val = torch.where(hit, values[at], 0)
+    c = hit.sum(dim=1, dtype=torch.int32)
+    sv = torch.where(c == 1, val.sum(dim=1), 0).to(torch.int32)
+    return c, sv
+
+
+def probe_segments(segments, sorted_keys: np.ndarray, values: np.ndarray,
+                   k: int, chunk: int = PROBE_CHUNK, device=None):
+    """For each segment: (n_hits, value of the single hit or 0).
+
+    Hits are counted over every k-window. Returns (counts (N,), single_val
+    (N,)) int64, single_val meaningful only where counts == 1. The probe is
+    ``SCTAG_PROBE``'s (``host``, the default, or ``device``; module note);
+    the device probe runs on ``device`` (runtime.resolve_device).
+    """
+    probe = os.environ.get("SCTAG_PROBE", "host")
+    if probe == "host":
+        return _probe_rows_host(segments, sorted_keys, values, k)
+    if probe != "device":
+        raise ValueError(f"SCTAG_PROBE must be 'host' or 'device', got {probe!r}")
+    return _probe_segments_device(
+        segments, sorted_keys, values, k, chunk, resolve_device(device)
+    )
+
+
+def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
+    """The device probe driver: per step, one native encode + 2-bit pack of
+    up to ``chunk`` rows, probe_rows_packed on ``dev``, the per-row results
+    copied back. Junk rows (in-sequence non-ACGT) go to the host probe."""
+    n = len(segments)
+    counts = np.zeros(n, dtype=np.int64)
+    single_val = np.zeros(n, dtype=np.int64)
+    if n == 0:
+        return counts, single_val
+    L = round_up(max(int(seq_lengths(segments).max()), k), 4)  # L % 4 == 0
+    rows = max(1, min(chunk, _ROW_BUDGET // L))
+    sk = torch.from_numpy(sorted_keys.astype(np.int64)).to(dev)
+    vv = torch.from_numpy(values.astype(np.int64)).to(dev)
+    enc_packed = getattr(segments, "encode_packed", None)
+    junk_rows: list[np.ndarray] = []
+    for s in range(0, n, rows):
+        idx = np.arange(s, min(s + rows, n), dtype=np.int64)
+        if enc_packed is not None:
+            pk, lens, junk = enc_packed(idx, pad_to=L, table=STRICT_TABLE)
+        else:
+            codes, lens = encode_rows(segments, idx, pad_to=L, table=STRICT_TABLE)
+            in_len = np.arange(L)[None, :] < lens[:, None]
+            junk = ((codes > 3) & in_len).any(axis=1)
+            c4 = (codes & 3).astype(np.uint8).reshape(idx.size, L // 4, 4)
+            pk = c4[:, :, 0] | (c4[:, :, 1] << 2) | (c4[:, :, 2] << 4) | (c4[:, :, 3] << 6)
+        lens = np.where(junk, 0, lens).astype(np.int32)
+        if junk.any():
+            junk_rows.append(idx[junk])
+        c, v = probe_rows_packed(
+            sk, vv, torch.from_numpy(np.ascontiguousarray(pk)).to(dev),
+            torch.from_numpy(lens).to(dev), k, L,
+        )
+        counts[idx] = c.cpu().numpy()
+        single_val[idx] = v.cpu().numpy()
+    if junk_rows:
+        jr = np.concatenate(junk_rows)
+        jc, jv = _probe_rows_host(
+            [segments[int(i)] for i in jr], sorted_keys, values, k
+        )
+        counts[jr] = jc
+        single_val[jr] = jv
+    return counts, single_val
+
+
+def _probe_rows_host(segments, sorted_keys: np.ndarray, values: np.ndarray,
+                     k: int):
+    """Native threaded hash probe over raw segment bytes (exact_probe.cpp)."""
+    from ..native import build as native_build
+
+    lib = native_build.load()
+    n = len(segments)
+    if values.size and int(np.abs(values).max()) >= 2**31:
+        raise ValueError("values exceed int32 (hash table layout)")
+    # open-addressing table, load factor <= 0.5 (hash_table.cpp layout)
+    size = 1
+    while size < 2 * max(len(sorted_keys), 1):
+        size *= 2
+    tkeys = np.zeros(size, np.uint32)
+    tvals = np.zeros(size, np.int32)
+    tvals.fill(np.iinfo(np.int32).min)
+    keys_c = np.ascontiguousarray(sorted_keys.view(np.uint32))
+    vals_c = np.ascontiguousarray(values.astype(np.int32))
+    lib.sctag_hash_build(
+        keys_c.ctypes.data, vals_c.ctypes.data, len(sorted_keys), size,
+        tkeys.ctypes.data, tvals.ctypes.data,
+    )
+    # raw bytes + offsets: zero-copy from a SeqBuffer, one join otherwise
+    buf = getattr(segments, "buf", None)
+    if buf is not None:
+        offs = segments.offs
+    else:
+        lens = np.fromiter(
+            (len(s) for s in segments), np.int64, count=n
+        ) if n else np.zeros(0, np.int64)
+        offs = np.zeros(n + 1, np.int64)
+        np.cumsum(lens, out=offs[1:])
+        joined = "".join(segments).encode("latin-1")
+        buf = np.frombuffer(joined, np.uint8)
+    offs = np.ascontiguousarray(offs, np.int64)
+    counts = np.zeros(n, np.int64)
+    single = np.zeros(n, np.int64)
+    nthreads = int(os.environ.get("SCTAG_PROBE_THREADS", "2") or 2)
+    lib.sctag_probe_rows(
+        buf.ctypes.data, offs.ctypes.data, n,
+        tkeys.ctypes.data, tvals.ctypes.data, size, k, nthreads,
+        counts.ctypes.data, single.ctypes.data,
+    )
+    return counts, single
+
+
+def host_dict_fallback(segments, words_fwd, words_rc):
+    """Generic Aho-Corasick-equivalent for non-uniform/non-ACGT whitelists.
+
+    Same per-segment (count, single value) contract as probe_segments, but
+    supports arbitrary equal-or-mixed-length patterns via per-length window
+    dict probes. Slow host path; only exercised on exotic inputs.
+    """
+    table: dict[str, int] = {}
+    for i, w in enumerate(words_fwd):
+        table[w] = i
+    for i, w in enumerate(words_rc):
+        table[w] = -i
+    lens = sorted({len(w) for w in table})
+    n = len(segments)
+    counts = np.zeros(n, dtype=np.int64)
+    single_val = np.zeros(n, dtype=np.int64)
+    for r, seg in enumerate(segments):
+        hits = []
+        for e in range(len(seg)):
+            for k in lens:
+                if e + 1 >= k:
+                    w = seg[e - k + 1 : e + 1]
+                    if w in table:
+                        hits.append(table[w])
+        counts[r] = len(hits)
+        if len(hits) == 1:
+            single_val[r] = hits[0]
+    return counts, single_val

@@ -19,12 +19,16 @@ JAX package's:
            distance target[r], [1..] the first TIES_K of them ascending
 
 A wrapper given CPU tensors runs its plain version (``*_ref``); given CUDA
-tensors it launches the kernel on the current stream or raises. Each
-wrapper counts its kernel launches: ``LAUNCHES`` (match_full and
-match_full_dynls), ``MIN_LAUNCHES``, ``BEST_LAUNCHES``, ``TIES_LAUNCHES``.
+tensors it launches the kernel on the calling thread's current stream or
+raises. Each wrapper counts its kernel launches: ``LAUNCHES`` (match_full
+and match_full_dynls), ``MIN_LAUNCHES``, ``BEST_LAUNCHES``,
+``TIES_LAUNCHES``, under a lock, so the counts stay exact when two threads
+launch (the checkpointed match_trie runs two batches at once).
 """
 
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -43,6 +47,7 @@ LAUNCHES = 0  # kernel launches by match_full / match_full_dynls
 MIN_LAUNCHES = 0  # by match_min
 BEST_LAUNCHES = 0  # by match_best
 TIES_LAUNCHES = 0  # by match_ties
+_COUNT_LOCK = threading.Lock()
 
 _THREADS = 128  # reads per CUDA block (csrc/match_full.cu THREADS)
 _BLOCKS_PER_SM = 16  # pattern-axis split target: ~2 waves of resident blocks
@@ -280,7 +285,8 @@ def _launch(kind: str, seg_T, peq_pm, m: int, maxlens=None, target=None) -> torc
         if n_split > 1:
             partial = torch.empty((n_split, rows, r_pad), dtype=torch.int32, device=dev)
     fn = getattr(_build.load("match_full"), f"sctag_match_{kind}")
-    with torch.cuda.device(dev):
+    # the range names the launch in a torch.profiler trace (SCTAG_PROFILE)
+    with torch.profiler.record_function(f"sctag_match_{kind}"), torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(
             seg_T.data_ptr(), ls, r_pad, peq_pm.data_ptr(), p_pad,
@@ -293,6 +299,12 @@ def _launch(kind: str, seg_T, peq_pm, m: int, maxlens=None, target=None) -> torc
     return out
 
 
+def _count(name: str) -> None:
+    """Add one launch to the counter ``name`` (a module global)."""
+    with _COUNT_LOCK:
+        globals()[name] += 1
+
+
 def _route(seg_T: torch.Tensor) -> str:
     if seg_T.device.type in ("cpu", "cuda"):
         return seg_T.device.type
@@ -302,11 +314,10 @@ def _route(seg_T: torch.Tensor) -> str:
 def match_full(seg_T: torch.Tensor, peq_pm: torch.Tensor, m: int) -> torch.Tensor:
     """Fused min + ties over all patterns (K1). CPU tensors take the plain
     version; CUDA tensors launch the kernel."""
-    global LAUNCHES
     if _route(seg_T) == "cpu":
         return match_full_ref(seg_T, peq_pm, m)
     out = _launch("full", seg_T, peq_pm, m)
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return out
 
 
@@ -315,31 +326,28 @@ def match_full_dynls(
 ) -> torch.Tensor:
     """match_full with each read block's sweep stopped at its maxlens entry
     (K2); bit-identical to match_full when maxlens bounds the real lengths."""
-    global LAUNCHES
     if _route(seg_T) == "cpu":
         return match_full_dynls_ref(seg_T, peq_pm, maxlens, m)
     out = _launch("full", seg_T, peq_pm, m, maxlens=maxlens)
-    LAUNCHES += 1
+    _count("LAUNCHES")
     return out
 
 
 def match_min(seg_T: torch.Tensor, peq_pm: torch.Tensor, m: int) -> torch.Tensor:
     """Min infix distance per read over all patterns, (1, R_pad) (K4)."""
-    global MIN_LAUNCHES
     if _route(seg_T) == "cpu":
         return match_min_ref(seg_T, peq_pm, m)
     out = _launch("min", seg_T, peq_pm, m)
-    MIN_LAUNCHES += 1
+    _count("MIN_LAUNCHES")
     return out
 
 
 def match_best(seg_T: torch.Tensor, peq_pm: torch.Tensor, m: int) -> torch.Tensor:
     """The best-distance matrix, (P_pad, R_pad) int8 clamped at 127 (K5)."""
-    global BEST_LAUNCHES
     if _route(seg_T) == "cpu":
         return match_best_ref(seg_T, peq_pm, m)
     out = _launch("best", seg_T, peq_pm, m)
-    BEST_LAUNCHES += 1
+    _count("BEST_LAUNCHES")
     return out
 
 
@@ -348,9 +356,8 @@ def match_ties(
 ) -> torch.Tensor:
     """Per read, the number of patterns whose best distance is target[r]
     and the first TIES_K of them ascending, (TIES_K + 1, R_pad) (K3)."""
-    global TIES_LAUNCHES
     if _route(seg_T) == "cpu":
         return match_ties_ref(seg_T, peq_pm, target, m)
     out = _launch("ties", seg_T, peq_pm, m, target=target)
-    TIES_LAUNCHES += 1
+    _count("TIES_LAUNCHES")
     return out

@@ -9,8 +9,12 @@ Output row (scTagger.py:317-320): rname \t dist \t loc \t seq[s:e or None]
 with Python slicing semantics (negative indices, e==0 -> slice to end), and
 dist=-1 / loc='NA' / empty segment for invalid reads.
 
-Only the single-host, un-checkpointed path is ported; SCTAG_CHECKPOINT_DIR
-and --n-hosts > 1 raise NotImplementedError (ROADMAP.md, Queue A).
+Optional batch-granular checkpointing: with SCTAG_CHECKPOINT_DIR set, the
+reads are scanned in SCTAG_CHECKPOINT_BATCH-read batches whose scan results
+persist as npz parts (pipeline/checkpoint); range detection, filtering and
+the write re-run from the concatenated parts, so a re-run scans only the
+missing batches and writes the same bytes. Single host only: --n-hosts > 1
+raises NotImplementedError (ROADMAP.md, Queue A).
 """
 
 from __future__ import annotations
@@ -31,19 +35,20 @@ from ..core.ranges import (
 )
 from ..io.fastq import read_fastqs, read_fastqs_stream
 from ..io.tsv import open_out, write_lr_tsv_gz_native
-from ..models.adapter import make_d0_scanner, scan_adapters, scan_adapters_stream
+from ..models.adapter import (
+    AdapterScanResult,
+    make_d0_scanner,
+    scan_adapters,
+    scan_adapters_stream,
+)
 from ..observability import progress_bar, stage_scope
+from ..pipeline.checkpoint import PartStore, job_key
 from ..runtime import resolve_device
-from ..utils import PROF, prof_timer
+from ..utils import PROF, batch_iter, prof_timer
 
 
 def run(args, device=None) -> None:
     """Run the stage on ``device`` (runtime.resolve_device)."""
-    if os.environ.get("SCTAG_CHECKPOINT_DIR"):
-        raise NotImplementedError(
-            "sctagger_tpu_torch extract_lr_bc: checkpointed batches "
-            "(SCTAG_CHECKPOINT_DIR) are not ported yet (ROADMAP.md Queue A)"
-        )
     if (getattr(args, "n_hosts", 1) or 1) > 1:
         raise NotImplementedError(
             "sctagger_tpu_torch extract_lr_bc: --n-hosts > 1 is not ported yet "
@@ -137,10 +142,22 @@ def _run_stream(args, stats, dev):
 
 
 def _run(args, stats, dev) -> None:
+    # the batch size defines each part's read span, so it keys the store (a
+    # resume with a different batch would reuse parts with mismatched spans)
+    batch = int(os.environ.get("SCTAG_CHECKPOINT_BATCH", 250_000))
+    store = PartStore(
+        "extract_lr_bc_scan",
+        job_key(
+            "extract_lr_bc_scan",
+            list(args.reads),
+            {"sa": args.short_read_adapter, "z": bool(args.gzipped),
+             "batch": batch},
+        ),
+    )
     if args.outfile is not None:
         # fail fast on an unwritable output path BEFORE the expensive scan
         open(args.outfile, "wb").close()
-    if os.environ.get("SCTAG_STREAM", "1") != "0":
+    if not store.enabled and os.environ.get("SCTAG_STREAM", "1") != "0":
         rnames, seqs, scan = _run_stream(args, stats, dev)
     else:
         with stats.timer("read_fastq"), prof_timer("stage.read_fastq"):
@@ -150,12 +167,43 @@ def _run(args, stats, dev) -> None:
             file=sys.stderr,
         )
         with stats.timer("adapter_scan"):
-            scan = scan_adapters(
-                seqs, args.short_read_adapter, progress=True, device=dev
-            )
+            if store.enabled:
+                scan = _scan_checkpointed(args, stats, dev, store, batch, seqs)
+            else:
+                scan = scan_adapters(
+                    seqs, args.short_read_adapter, progress=True, device=dev
+                )
     stats.count("reads", len(seqs))
     _emit(args, stats, rnames, seqs, scan)
     stats.timers.update(PROF)  # per-phase diagnostics (utils.prof_timer)
+
+
+_SCAN_FIELDS = {"strands": np.int8, "dists": np.int32, "flat_locs": np.int64,
+                "loc_counts": np.int64}
+
+
+def _scan_checkpointed(args, stats, dev, store, batch: int, seqs):
+    """scan_adapters per ``batch`` reads, each batch's result an npz part
+    (the resume unit; a read's scan does not depend on its batch), the parts
+    concatenated in read order."""
+    parts = []
+    for bi, (s, e) in enumerate(batch_iter(len(seqs), batch)):
+        if store.has(bi, "npz"):
+            parts.append(store.load_arrays(bi))
+            stats.count("batches_skipped")
+            continue
+        r = scan_adapters(
+            seqs[s:e], args.short_read_adapter, progress=True, device=dev
+        )
+        d = {name: getattr(r, name) for name in _SCAN_FIELDS}
+        store.save_arrays(bi, **d)
+        parts.append(d)
+        stats.count("batches_computed")
+    return AdapterScanResult(**{
+        name: np.concatenate([p[name] for p in parts]) if parts
+        else np.empty(0, dtype)
+        for name, dtype in _SCAN_FIELDS.items()
+    })
 
 
 def _emit(args, stats, rnames, seqs, scan) -> None:

@@ -1,0 +1,146 @@
+"""`extract_sr_bc_from_lr` stage (torch port of
+sctagger_tpu/stages/extract_sr_bc_from_lr.py): whitelist recovery from LR
+segments.
+
+Pipeline (reference scTagger.py:792-844): read the 10x whitelist (NOTE the
+reference strips exactly one trailing char per line, `l[:-1]` — reproduced,
+so a file without a trailing newline loses its last char) -> exact-match
+every segment window against fwd+rc of every whitelist barcode
+(ops/exact_lookup.py; host probe by default, ``SCTAG_PROBE=device`` on the
+card) -> drop ambiguous reads (>1 hit) -> count by abs(index), fwd/rc
+merged -> sort by count desc (ties keep first-increment order) -> cap,
+chunked threshold cutoff -> TSV `barcode \\t count` (gzipped when -o given).
+
+With SCTAG_CHECKPOINT_DIR set, the probe runs in SCTAG_CHECKPOINT_BATCH-row
+batches whose (counts, single_val) arrays persist as npz parts; a re-run
+probes only the missing batches. Single host only: --n-hosts > 1 raises
+NotImplementedError (ROADMAP.md Queue A).
+"""
+
+from __future__ import annotations
+
+import os
+import sys
+
+import numpy as np
+
+from ..core.cutoff import chunked_cutoff
+from ..core.packing import rev_compl
+from ..io.tsv import open_maybe_gz, open_out, read_lr_segments_tsv
+from ..observability import progress_bar, stage_scope
+from ..ops.exact_lookup import build_key_table, host_dict_fallback, probe_segments
+from ..ops.topk_count import count_and_rank_host
+from ..pipeline.checkpoint import PartStore, job_key
+from ..runtime import resolve_device
+from ..utils import batch_iter
+
+
+def run(args, device=None) -> None:
+    """Run the stage. The device probe (``SCTAG_PROBE=device``) runs on
+    ``device`` (runtime.resolve_device, resolved before any input is read);
+    the default host probe needs no device."""
+    if (getattr(args, "n_hosts", 1) or 1) > 1:
+        raise NotImplementedError(
+            "sctagger_tpu_torch extract_sr_bc_from_lr: --n-hosts > 1 is not "
+            "ported yet (ROADMAP.md Queue A)"
+        )
+    dev = None
+    if os.environ.get("SCTAG_PROBE", "host") == "device":
+        dev = resolve_device(device)
+    with stage_scope("extract_sr_bc_from_lr") as stats:
+        _run(args, stats, dev)
+
+
+def _run(args, stats, dev) -> None:
+    with stats.timer("read_whitelist"):
+        infile = open_maybe_gz(args.barcode_whitelist)
+        print(f"Reading whiltelist barcodes from: {args.barcode_whitelist}")
+        barcodes = [l[:-1] for l in infile]
+        infile.close()
+    stats.count("whitelist", len(barcodes))
+
+    print(f"\n=====\nMatching exact barcodes on long-reads: {args.input}")
+    with stats.timer("read_lr_tsv"):
+        _, _, locs, segs = read_lr_segments_tsv(args.input)
+        keep = [i for i, p in enumerate(locs) if p != "NA"]
+        take = getattr(segs, "take", None)
+        segments = take(keep) if take else [segs[i] for i in keep]
+    stats.count("segments", len(segments))
+
+    with stats.timer("key_table"):
+        try:
+            # rc keys derived numerically inside build_key_table: no rc strings
+            sorted_keys, values = build_key_table(barcodes)
+
+            def _probe(batch):
+                return probe_segments(
+                    batch, sorted_keys, values, k=len(barcodes[0]), device=dev
+                )
+        except ValueError:
+            print("whitelist not uniform ACGT; using host fallback", file=sys.stderr)
+            barcodes_rc = [rev_compl(b) for b in barcodes]
+
+            def _probe(batch):
+                return host_dict_fallback(batch, barcodes, barcodes_rc)
+
+    with stats.timer("probe"):
+        counts_per_seg, single_val = _scan_with_checkpoint(args, segments, _probe)
+
+    matched = counts_per_seg == 1
+    stats.count("matched_segments", int(matched.sum()))
+    with stats.timer("rank"):
+        vals = np.abs(single_val[matched]).astype(np.uint32)
+        # host count + rank by (count desc, first-increment asc) — identical
+        # to the reference's insertion-ordered Counter + stable reverse sort
+        # (scTagger.py:826-828)
+        keys_ranked, counts_ranked = count_and_rank_host(vals)
+        print(f"\n=====\nFound {len(keys_ranked):,} unique barcodes on long-reads")
+        sorted_bc = [
+            (int(k), int(c)) for k, c in zip(keys_ranked, counts_ranked)
+        ][: args.max_barcode_cnt]
+        sorted_bc = chunked_cutoff(sorted_bc, args.step_size, args.thresh)
+
+    print(f"\n=====\nWriting the top {len(sorted_bc)} barcodes")
+    stats.count("written", len(sorted_bc))
+    with stats.timer("write"):
+        outfile = open_out(args.outfile, force_gzip=True)
+        for bc, c in sorted_bc:
+            outfile.write(f"{barcodes[bc]}\t{c}\n")
+        if outfile is not sys.stdout:
+            outfile.close()
+
+
+def _scan_with_checkpoint(args, segments, probe_fn):
+    """Batch-granular scan cache for the whitelist probe (SCTAG_CHECKPOINT_DIR,
+    like stage 1's scan cache): per-batch (counts, single_val) arrays persist
+    as npz parts, so a killed run resumes at batch granularity with
+    byte-identical output."""
+    # batch size defines the part spans, so it keys the store (stale-span
+    # reuse guard; see pipeline/checkpoint.py)
+    batch = int(os.environ.get("SCTAG_CHECKPOINT_BATCH", 250_000))
+    store = PartStore(
+        "extract_sr_bc_from_lr_scan",
+        job_key(
+            "extract_sr_bc_from_lr_scan",
+            [args.input, args.barcode_whitelist],
+            {"m": args.max_barcode_cnt, "batch": batch},
+        ),
+    )
+    if not store.enabled:
+        return probe_fn(segments)
+    counts_parts, val_parts = [], []
+    bar = progress_bar(total=len(segments), desc="probe", unit="row")
+    for bi, (s, e) in enumerate(batch_iter(len(segments), batch)):
+        if store.has(bi, "npz"):
+            d = store.load_arrays(bi)
+        else:
+            c, v = probe_fn(segments[s:e])
+            d = {"counts": c, "single_val": v}
+            store.save_arrays(bi, **d)
+        counts_parts.append(d["counts"])
+        val_parts.append(d["single_val"])
+        bar.update(e - s)
+    bar.close()
+    if not counts_parts:
+        return np.zeros(0, np.int64), np.zeros(0, np.int64)
+    return np.concatenate(counts_parts), np.concatenate(val_parts)

@@ -131,13 +131,16 @@ def test_plotfile(tmp_path):
 
 
 def test_not_ported_options_raise(tmp_path, monkeypatch):
+    """--n-hosts > 1 raises, with or without SCTAG_CHECKPOINT_DIR (which
+    the stage supports: tests/test_torch_checkpoint.py)."""
     fq = _fastq(tmp_path / "reads.fastq", np.random.default_rng(1), n_reads=5)
     argv = ["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "o.tsv.gz")]
     with pytest.raises(NotImplementedError, match="n-hosts"):
         torch_main([*argv, "--n-hosts", "2"])
     monkeypatch.setenv("SCTAG_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="SCTAG_CHECKPOINT_DIR"):
-        torch_main(argv)
+    with pytest.raises(NotImplementedError, match="n-hosts"):
+        torch_main([*argv, "--n-hosts", "2"])
+    assert not (tmp_path / "ckpt").exists()
 
 
 class _StreamWithoutIsatty:

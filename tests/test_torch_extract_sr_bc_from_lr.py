@@ -1,0 +1,115 @@
+"""`extract_sr_bc_from_lr` end to end: sctagger_tpu_torch.cli.main against
+sctagger_tpu.cli.main on the same LR TSVs and whitelists (CPU), under the
+host probe and under the device probe (asked for the CPU).
+
+The gz TSVs must be identical after gunzip. Whitelists cover a gz file with
+a trailing newline, a plain file without one (the reference's `l[:-1]` drops
+its last char), an empty file and one with N (the host dict fallback)."""
+
+import gzip
+
+import numpy as np
+import pytest
+import torch
+
+from sctagger_tpu.cli import main as jax_main
+from sctagger_tpu.core.packing import rev_compl
+from sctagger_tpu_torch.cli import main as torch_main
+
+torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _on_cpu(monkeypatch):
+    """The device probe runs on the card unless asked: ask for the CPU."""
+    monkeypatch.setenv("SCTAG_DEVICE", "cpu")
+
+
+def _dna(rng, n: int) -> str:
+    return "".join("ACGT"[i] for i in rng.integers(0, 4, size=n))
+
+
+def _inputs(tmp_path, rng, wl_kind: str, n_wl=120, n_rows=600):
+    wl = sorted({_dna(rng, 16) for _ in range(n_wl)})
+    if wl_kind == "with_n":
+        wl[3] = wl[3][:5] + "N" + wl[3][6:]
+    text = "".join(b + "\n" for b in wl)
+    if wl_kind == "gz" or wl_kind == "with_n":
+        wl_path = tmp_path / "wl.txt.gz"
+        wl_path.write_bytes(gzip.compress(text.encode()))
+    else:
+        wl_path = tmp_path / "wl.txt"
+        wl_path.write_text("" if wl_kind == "empty" else text[:-1])
+    weights = 1.0 / (np.arange(len(wl)) + 1.0) ** 1.1
+    weights /= weights.sum()
+    rows = []
+    for i in range(n_rows):
+        if rng.random() < 0.1:  # NA rows are skipped by the stage
+            rows.append(f"read{i}\t-1\tNA\t\n")
+            continue
+        seg = _dna(rng, int(rng.integers(10, 45)))
+        r = rng.random()
+        if r < 0.7:
+            bc = wl[int(rng.choice(len(wl), p=weights))]
+            bc = rev_compl(bc) if rng.random() < 0.5 else bc
+            p = int(rng.integers(0, len(seg)))
+            seg = seg[:p] + bc + seg[p:]
+        elif r < 0.8:  # two hits: ambiguous, dropped
+            seg = seg[:2] + wl[int(rng.integers(len(wl)))] + seg[2:5] + wl[0] + seg[5:]
+        if rng.random() < 0.05:
+            p = int(rng.integers(len(seg)))
+            seg = seg[:p] + "N" + seg[p + 1:]
+        rows.append(f"read{i}\t1\t5\t{seg}\n")
+    lr = tmp_path / "lr.tsv.gz"
+    lr.write_bytes(gzip.compress("".join(rows).encode()))
+    return wl_path, lr
+
+
+def _both(tmp_path, argv):
+    outs = []
+    for name, main in (("jax", jax_main), ("torch", torch_main)):
+        out = tmp_path / f"{name}.tsv.gz"
+        main(["extract_sr_bc_from_lr", *argv, "-o", str(out)])
+        outs.append(gzip.decompress(out.read_bytes()))
+    return outs
+
+
+@pytest.mark.parametrize("probe", ["host", "device"])
+@pytest.mark.parametrize("wl_kind", ["gz", "no_trailing_newline", "empty", "with_n"])
+def test_cli_matches_jax(tmp_path, monkeypatch, probe, wl_kind):
+    rng = np.random.default_rng(len(wl_kind))
+    wl, lr = _inputs(tmp_path, rng, wl_kind)
+    monkeypatch.setenv("SCTAG_PROBE", probe)
+    want, got = _both(tmp_path, ["-i", str(lr), "-wl", str(wl), "--step-size", "20"])
+    assert got == want
+    if wl_kind == "empty":
+        assert got == b""
+    else:
+        assert got.count(b"\n") > 10
+
+
+@pytest.mark.parametrize("extra", [
+    ["--max-barcode-cnt", "9"], ["--thresh", "0.1", "--step-size", "3"],
+], ids=["cap9", "thresh-step3"])
+def test_cutoff_options(tmp_path, monkeypatch, extra):
+    rng = np.random.default_rng(40 + len(extra))
+    wl, lr = _inputs(tmp_path, rng, "gz")
+    monkeypatch.setenv("SCTAG_PROBE", "device")
+    want, got = _both(tmp_path, ["-i", str(lr), "-wl", str(wl), *extra])
+    assert got == want and got
+
+
+def test_stdout_and_n_hosts(tmp_path, capsys, monkeypatch):
+    """Rows to stdout as the JAX CLI writes them; with the default host
+    probe no device is resolved; --n-hosts > 1 raises."""
+    monkeypatch.delenv("SCTAG_DEVICE", raising=False)
+    rng = np.random.default_rng(8)
+    wl, lr = _inputs(tmp_path, rng, "gz", n_rows=200)
+    argv = ["extract_sr_bc_from_lr", "-i", str(lr), "-wl", str(wl)]
+    jax_main(argv)
+    want = capsys.readouterr().out
+    torch_main(argv)
+    got = capsys.readouterr().out
+    assert got.split("\n", 1)[1] == want.split("\n", 1)[1]
+    with pytest.raises(NotImplementedError, match="n-hosts"):
+        torch_main([*argv, "-o", str(tmp_path / "o.tsv.gz"), "--n-hosts", "2"])

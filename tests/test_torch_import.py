@@ -23,7 +23,10 @@ MODULES = ["sctagger_tpu_torch"] + sorted(
 def test_module_list_holds_the_copies():
     for name in ("core.packing", "core.ranges", "io.fastq", "io.tsv", "native.build",
                  "utils", "plots", "cli", "observability", "ops.adapter_cuda",
-                 "stages.extract_lr_bc", "tools.roofline"):
+                 "stages.extract_lr_bc", "tools.roofline", "core.cutoff", "io.bam",
+                 "ops.exact_lookup", "ops.topk_count", "pipeline.checkpoint",
+                 "pipeline.runner", "stages.extract_sr_bc",
+                 "stages.extract_sr_bc_from_lr"):
         assert f"sctagger_tpu_torch.{name}" in MODULES
 
 
@@ -95,12 +98,14 @@ def test_import_scan_catches_the_jax_package(src, pkg, want):
     assert bool(got) == bool(want)
 
 
-def test_non_ported_subcommand_exits_nonzero(capsys):
-    import pytest
-
+def test_non_ported_subcommand_exits_nonzero(tmp_path):
+    """Every subcommand is ported; what is not (--n-hosts > 1, ROADMAP Queue
+    A item 6) raises in each of the four."""
     from sctagger_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit) as exc:
-        main(["extract_sr_bc", "-i", "in.bam"])
-    assert exc.value.code != 0
-    assert "not yet ported to sctagger_tpu_torch" in capsys.readouterr().err
+    out = str(tmp_path / "o.tsv.gz")
+    for argv in (["extract_lr_bc", "-r", "a.fq"], ["extract_sr_bc", "-i", "in.bam"],
+                 ["extract_sr_bc_from_lr", "-i", "lr.tsv", "-wl", "wl.txt"],
+                 ["match_trie", "-lr", "lr.tsv", "-sr", "sr.tsv"]):
+        with pytest.raises(NotImplementedError, match="n-hosts"):
+            main([*argv, "-o", out, "--n-hosts", "2"])

@@ -1,8 +1,8 @@
 """The port's own copies of the JAX package's host modules
-(sctagger_tpu_torch.{core,io,native,utils,cli,observability,plots}) against
-their originals on the same numpy-seeded inputs (CPU). Tolerance: exact
-equality; TSV and FASTQ results byte for byte, each side through its own
-native library."""
+(sctagger_tpu_torch.{core,io,native,pipeline,utils,cli,observability,plots}
+and ops.topk_count) against their originals on the same numpy-seeded inputs
+(CPU). Tolerance: exact equality; TSV, FASTQ and BAM results byte for byte,
+each side through its own native library."""
 
 import gzip
 import json
@@ -36,6 +36,8 @@ VERBATIM = [
     "native/fastq_reader.cpp", "native/tsv_reader.cpp", "native/tsv_writer.cpp",
     "native/range_search.cpp", "native/adapter_d0.cpp", "native/adapter_d1.cpp",
     "native/adapter_d2.cpp", "native/adapter_verify.h",
+    "core/cutoff.py", "io/bam.py", "pipeline/__init__.py", "pipeline/checkpoint.py",
+    "native/bam_reader.cpp", "native/hash_table.cpp", "native/exact_probe.cpp",
 ]
 
 
@@ -210,3 +212,62 @@ def test_tsv_native_same_bytes(tmp_path):
     sr = tmp_path / "sr.tsv"
     sr.write_text("".join(f"{_dna(rng, 16)}\t{i}\n" for i in range(20)))
     assert ttsv.read_sr_barcodes_tsv(str(sr)) == jtsv.read_sr_barcodes_tsv(str(sr))
+
+
+def test_count_and_rank_host():
+    import sctagger_tpu.ops.topk_count as jtopk
+    import sctagger_tpu_torch.ops.topk_count as ttopk
+
+    rng = np.random.default_rng(4)
+    keys = rng.integers(0, 50, 2000).astype(np.uint32)
+    valid = rng.random(2000) < 0.8
+    for v in (None, valid):
+        for a, b in zip(ttopk.count_and_rank_host(keys, v),
+                        jtopk.count_and_rank_host(keys, v)):
+            np.testing.assert_array_equal(a, b)
+            assert a.dtype == b.dtype
+    empty = ttopk.count_and_rank_host(np.zeros(0, np.uint32))
+    assert [a.size for a in empty] == [0, 0]
+
+
+def test_bam_reader_same_counts(tmp_path):
+    """The port's BAM reader (its own library) == the JAX package's, whole
+    file and in byte ranges."""
+    import sctagger_tpu.io.bam as jbam
+    import sctagger_tpu_torch.io.bam as tbam
+    from bamgen import write_bam
+
+    rng = np.random.default_rng(6)
+    pool = [_dna(rng, 16) for _ in range(30)]
+    alns = {c: [{"flag": int(rng.choice([0, 16, 256, 1024])), "name": f"q{i}",
+                 "pos": i, "tags": [["CB", pool[int(rng.integers(30))] + "-1"]]}
+                for i in range(1500)] for c in ("chr1", "chr2")}
+    path = str(tmp_path / "a.bam")
+    write_bam(path, ["chr1", "chr2"], alns)
+    got, want = tbam.extract_cb_counts(path), jbam.extract_cb_counts(path)
+    assert got[0] == want[0] and got[2] == want[2]
+    np.testing.assert_array_equal(got[1], want[1])
+    size = tbam.bam_file_size(path)
+    assert size == jbam.bam_file_size(path) > 0
+    for start, end, skip, hdr in ((0, size // 2, 0, True), (size // 2, size, -1, False)):
+        t = tbam.extract_cb_counts_range(path, start, end, skip, parse_header=hdr)
+        j = jbam.extract_cb_counts_range(path, start, end, skip, parse_header=hdr)
+        assert t[0] == j[0] and t[3:] == j[3:]
+        for a, b in zip(t[1:3], j[1:3]):
+            np.testing.assert_array_equal(a, b)
+
+
+def test_profile_trace(tmp_path, monkeypatch):
+    """SCTAG_PROFILE=<dir>: stage_scope writes a torch.profiler Chrome trace
+    of the stage body into <dir> (CPU activity here)."""
+    import torch
+
+    monkeypatch.setenv("SCTAG_PROFILE", str(tmp_path / "prof"))
+    with tobs.stage_scope("probe_stage") as st:
+        with torch.profiler.record_function("sctag_marker"):
+            torch.ones(8).sum()
+        st.count("x")
+    traces = list((tmp_path / "prof").glob("probe_stage.*.pt.trace.json"))
+    assert len(traces) == 1
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    assert any(e.get("name") == "sctag_marker" for e in events)
