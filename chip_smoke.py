@@ -52,7 +52,7 @@ Phases, each fatal on failure:
      check_device_paths (phase 3) also requires that the > 8-ties escalation
      at bl 16 launched match_best (K5) on the card; the `match_trie` run
      logs the reads it escalates and K5's launches there.
-  5. output checks: the first 4,096 LR rows of `match_trie` rerun through the
+  5. output checks: the first 1,024 LR rows of `match_trie` rerun through the
      plain path on the CPU must give byte-identical rows; a 20,000-read
      `extract_lr_bc` run (plus reads with N and one with > 4 ends, through
      MASK on the card) on the card and on the CPU must write identical TSVs,
@@ -77,9 +77,24 @@ Phases, each fatal on failure:
        5,000-read sample with a 1,000-barcode whitelist, on the card (K6
        SLOTS and K1/K2 launched) and under SCTAG_DEVICE=cpu: the three
        artifacts equal; a second call skips every rule;
-     - SCTAG_PROFILE around a 4,096-row `match_trie` run: the trace names
+     - SCTAG_PROFILE around a 1,024-row `match_trie` run: the trace names
        the match_full kernel (its CUDA kernel `match_sweep` and the
        `sctag_match_full` range).
+  7. multi-host and the device grid:
+     a. each stage at --n-hosts 2 as two processes on the card (one card
+        takes both: NCCL cannot put two ranks on one GPU, so the transports
+        are fs and gloo), on the inputs of phases 4 and 6 at full size: the
+        flagship `match_trie`, `extract_lr_bc` on the phase-4 FASTQ,
+        `extract_sr_bc` on the phase-6 BAM and `extract_sr_bc_from_lr`
+        (device probe) on the phase-6 alt fixture, over fs; `extract_lr_bc`
+        and the alt stage again over gloo (--coordinator). Each output
+        equals the single-host output of phases 4 and 6; each wall and each
+        host's K1/K6 launches are logged;
+     b. the grid (parallel/mesh.py) on the card: `dryrun_multichip(2)` with
+        SCTAG_VIRTUAL_DEVICES=2 (two slices on one card), and at
+        torch.cuda.device_count() where that is > 1; the 16,384 x 50,000 K1
+        chunk at data 2 and at model 2, and K6 SLOTS on 131,072 reads at
+        data 2, each equal to its one-device launch (timed).
 
 The line before the last is a JSON object with the kernel table; the last
 line is {"ok": true, "device": {...}}. Exits nonzero, printing no result,
@@ -94,6 +109,8 @@ import gzip
 import json
 import os
 import pathlib
+import socket
+import subprocess
 import sys
 import tempfile
 import time
@@ -102,7 +119,7 @@ import numpy as np
 
 ROOT = pathlib.Path(__file__).resolve().parent
 N_BARCODES = 25_000
-HEAD_ROWS = 4096
+HEAD_ROWS = 1024  # rows of the CPU plain-path check (plain Myers on the CPU is slow)
 KERNEL_SRC = "sctagger_tpu_torch/csrc/match_full.cu"
 ADAPTER_SRC = "sctagger_tpu_torch/csrc/adapter_scan.cu"
 ADAPTER_REPLACES = (
@@ -756,7 +773,8 @@ def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
     log(f"[lr] {len(rows)} rows, {valid} with an adapter in range")
     if len(rows) != n_reads or any(len(r) != 4 for r in rows) or valid < n_reads // 2:
         raise AssertionError("extract_lr_bc output has the wrong shape")
-    return {"launches": launches, "mask_launches": mask_launches, "wall_s": wall}
+    return {"launches": launches, "mask_launches": mask_launches, "wall_s": wall,
+            "fq": fq, "out": out}
 
 
 def check_stage1_output(tmp: pathlib.Path) -> None:
@@ -930,7 +948,7 @@ def check_sr_stage(tmp: pathlib.Path, n_alns: int = SR_ALNS) -> dict:
         raise AssertionError("checkpointed extract_sr_bc differs from the plain run")
     if not gone.exists() or not untouched:
         raise AssertionError("the extract_sr_bc resume did not rewrite exactly one part")
-    return walls
+    return {"walls": walls, "bam": bam, "want": want}
 
 
 def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
@@ -992,7 +1010,7 @@ def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
         raise AssertionError("extract_sr_bc_from_lr differs between probes or batches")
     if not head_cpu or head_cpu != head_card:
         raise AssertionError("the device probe on the CPU differs from the card")
-    return res
+    return {**res, "lr": lr, "wl": wl, "want": host}
 
 
 def check_match_checkpoint(main: dict, tmp: pathlib.Path) -> dict:
@@ -1131,7 +1149,7 @@ def check_runner(tmp: pathlib.Path, n_reads: int = RUNNER_READS,
 
 
 def check_profile(main: dict, tmp: pathlib.Path) -> dict:
-    """Phase 6e: SCTAG_PROFILE around a match_trie run on the first 4,096
+    """Phase 6e: SCTAG_PROFILE around a match_trie run on the first 1,024
     flagship rows: the Chrome trace must exist and name the match_full
     kernel (its CUDA kernel match_sweep, its range sctag_match_full)."""
     from sctagger_tpu_torch import cli
@@ -1159,7 +1177,175 @@ def check_profile(main: dict, tmp: pathlib.Path) -> dict:
     return {"kernel_events": len(kernels), "ranges": len(ranges)}
 
 
+# A host of a multi-host run: the port's CLI, then its launch counts on a
+# last stdout line of its own.
+_HOST = (
+    "import json, sys\n"
+    "from sctagger_tpu_torch.cli import main\n"
+    "from sctagger_tpu_torch.ops import adapter_cuda as ac, match_cuda as mc\n"
+    "main(sys.argv[1:])\n"
+    "print('LAUNCHES ' + json.dumps({'match_full': mc.LAUNCHES, "
+    "'adapter_scan': ac.LAUNCHES, 'adapter_mask': ac.MASK_LAUNCHES}), flush=True)\n"
+)
+
+
+def _free_port() -> int:
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _run_hosts(tag: str, argv: list, tmp: pathlib.Path, transport: str,
+               n_hosts: int = 2, timeout: int = 600, **env) -> dict:
+    """``argv`` at --n-hosts ``n_hosts``: one process per host, all on this
+    card, started together; ``transport`` fs or gloo (--coordinator on a
+    free local port). Returns the wall (launch of the first to exit of the
+    last) and each host's launches and stage timers."""
+    extra = []
+    if transport == "gloo":
+        extra = ["--coordinator", f"127.0.0.1:{_free_port()}"]
+    stats = [tmp / f"stats_mh_{tag}_h{h}.jsonl" for h in range(n_hosts)]
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, "-c", _HOST, *map(str, argv), "--n-hosts", str(n_hosts),
+             "--host-id", str(h), *extra],
+            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+            env={**os.environ, "PYTHONPATH": str(ROOT), "SCTAG_STATS": str(stats[h]),
+                 "SCTAG_SYNC_TIMEOUT": str(timeout), **env},
+        )
+        for h in range(n_hosts)
+    ]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for q in procs:
+            if q.poll() is None:
+                q.kill()
+                q.wait()
+    wall = time.perf_counter() - t0
+    if any(q.returncode for q in procs):
+        raise AssertionError(f"multi-host {tag} failed: "
+                             + "\n".join(e[-3000:] for _, e in outs))
+    launches = [json.loads(o.strip().splitlines()[-1].split(" ", 1)[1]) for o, _ in outs]
+    timers = [_stats(q)["timers_s"] for q in stats]
+    return {"wall_s": wall, "launches": launches, "timers": timers}
+
+
+def multihost_path(tmp: pathlib.Path, match: dict, lr: dict, sr: dict,
+                   alt: dict) -> dict:
+    """Phase 7a: every stage at --n-hosts 2 over fs, and extract_lr_bc and
+    the alt stage over gloo, two processes on this card each; every output
+    equals the single-host output of phases 4 and 6."""
+    from sctagger_tpu_torch.tools import gpu_line
+
+    want_lr = gzip.decompress(lr["out"].read_bytes())
+    runs = [
+        ("match_trie", "fs", ["match_trie", "-lr", match["lr"], "-sr", match["sr"],
+                              "-mr", "2"], ".tsv", match["out"].read_bytes(), {}),
+        ("extract_lr_bc", "fs", ["extract_lr_bc", "-r", lr["fq"]], ".tsv.gz",
+         want_lr, {}),
+        ("extract_sr_bc", "fs", ["extract_sr_bc", "-i", sr["bam"]], ".tsv.gz",
+         sr["want"], {}),
+        ("extract_sr_bc_from_lr", "fs", ["extract_sr_bc_from_lr", "-i", alt["lr"],
+                                         "-wl", alt["wl"]], ".tsv.gz", alt["want"],
+         {"SCTAG_PROBE": "device"}),
+        ("extract_lr_bc", "gloo", ["extract_lr_bc", "-r", lr["fq"]], ".tsv.gz",
+         want_lr, {}),
+        ("extract_sr_bc_from_lr", "gloo", ["extract_sr_bc_from_lr", "-i", alt["lr"],
+                                           "-wl", alt["wl"]], ".tsv.gz", alt["want"],
+         {"SCTAG_PROBE": "device"}),
+    ]
+    out = {}
+    for stage, transport, argv, ext, want, env in runs:
+        tag = f"{stage}_{transport}"
+        dst = tmp / f"mh_{tag}{ext}"
+        r = _run_hosts(tag, [*argv, "-o", dst], tmp, transport, **env)
+        got = gzip.decompress(dst.read_bytes()) if ext == ".tsv.gz" else dst.read_bytes()
+        same = got == want
+        log(f"[multihost] {stage} over {transport}, 2 hosts on one card: wall "
+            f"{r['wall_s']:.3f}s ({gpu_line()}); launches per host {r['launches']}; "
+            f"host timers {r['timers']}; output == single-host: {same} "
+            f"({len(got.splitlines())} rows)")
+        if not same or not want:
+            raise AssertionError(f"multi-host {stage} over {transport} differs")
+        if stage in ("match_trie", "extract_lr_bc"):
+            key = "match_full" if stage == "match_trie" else "adapter_scan"
+            _need_launches({f"{key} (host {h})": n[key]
+                            for h, n in enumerate(r["launches"])}, f"multi-host {tag}")
+        out[tag] = r
+    return out
+
+
+def grid_path() -> dict:
+    """Phase 7b: the device grid on this card: dryrun_multichip(2) on two
+    slices of it (and at every card where there are several); the K1 chunk
+    at data 2 and model 2 and K6 SLOTS at data 2, each == its one-device
+    launch, timed."""
+    import torch
+
+    import bench
+    from sctagger_tpu_torch import entry
+    from sctagger_tpu_torch.models.matcher import MatchContext
+    from sctagger_tpu_torch.ops import adapter_cuda as ac
+    from sctagger_tpu_torch.ops import match_cuda as mc
+    from sctagger_tpu_torch.parallel import mesh as pm
+    from sctagger_tpu_torch.tools import cuda_ms, gpu_line, roofline
+
+    res = {}
+    sizes = [(2, {"SCTAG_VIRTUAL_DEVICES": "2"})]
+    if torch.cuda.device_count() > 1:
+        sizes.append((torch.cuda.device_count(), {}))
+    for n, env in sizes:
+        mc.LAUNCHES = ac.LAUNCHES = ac.MASK_LAUNCHES = 0
+        t0 = time.perf_counter()
+        with _env(**env):
+            summary = entry.dryrun_multichip(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"match_full": mc.LAUNCHES, "adapter_scan": ac.LAUNCHES,
+                    "adapter_mask": ac.MASK_LAUNCHES}
+        log(f"[grid] dryrun_multichip({n}) {'virtual' if env else 'cards'}: "
+            f"{wall:.1f}s, {summary}; launches {launches}")
+        _need_launches({k: launches[k] for k in ("match_full", "adapter_scan")},
+                       f"dryrun_multichip({n})")
+        res[f"dryrun_{n}"] = wall
+
+    dev = torch.device("cuda")
+    segs, barcodes = bench.make_inputs(16_384, N_BARCODES, seed=0)
+    ctx = MatchContext(barcodes)
+    seg = torch.from_numpy(mc.prep_segs_T(_encode(segs, 24), 24)).to(dev)
+    peq = torch.from_numpy(mc.prep_peq_cols(ctx.peq(), bp=2 * mc.DEF_BP)).to(dev)
+    with _env(SCTAG_VIRTUAL_DEVICES="2"):
+        grids = {"data 2": pm.make_mesh(2), "model 2": pm.make_mesh(2, model_parallel=2)}
+    one = mc.match_full(seg, peq, 16)
+    ms_one = cuda_ms(lambda: mc.match_full(seg, peq, 16), reps=10)
+    for name, mesh in grids.items():
+        got = pm.shard_match_full_mp(mesh, seg, peq, 16)
+        err = _err(got, one)
+        ms = cuda_ms(lambda: pm.shard_match_full_mp(mesh, seg, peq, 16), reps=10)
+        log(f"[grid] K1 chunk {seg.shape[1]} reads x {peq.shape[0]} patterns at "
+            f"{name}: {ms:.3f} ms vs one launch {ms_one:.3f} ms, max_abs_err={err} "
+            f"({gpu_line()})")
+        if err:
+            raise AssertionError(f"K1 on the grid ({name}) differs from one launch")
+        res[f"k1 {name}"] = (ms, ms_one)
+    args = roofline.adapter_chunk(dev, n=131_072)
+    one = ac.adapter_scan(*args)
+    got = pm.shard_adapter_scan(grids["data 2"], *args)
+    err = _err(got, one)
+    ms_one = cuda_ms(lambda: ac.adapter_scan(*args), reps=20)
+    ms = cuda_ms(lambda: pm.shard_adapter_scan(grids["data 2"], *args), reps=20)
+    log(f"[grid] K6 SLOTS on 131,072 reads at data 2: {ms:.3f} ms vs one launch "
+        f"{ms_one:.3f} ms, max_abs_err={err} ({gpu_line()})")
+    if err:
+        raise AssertionError("K6 SLOTS on the grid differs from one launch")
+    res["k6 data 2"] = (ms, ms_one)
+    return res
+
+
 def main(argv=None) -> int:
+    t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--segments", type=int, default=1_048_576,
                     help="LR segments in the match_trie run (>= 262144)")
@@ -1214,9 +1400,16 @@ def main(argv=None) -> int:
         check_profile(res, tmp)
         res_lr = stage1_main_path(args.lr_reads, tmp)
         check_stage1_output(tmp)
-        check_sr_stage(tmp)
-        check_alt_stage(tmp)
+        res_sr = check_sr_stage(tmp)
+        res_alt = check_alt_stage(tmp)
         check_runner(tmp)
+        t7 = time.perf_counter()
+        multihost_path(tmp, res, res_lr, res_sr, res_alt)
+        t7a = time.perf_counter() - t7
+        t7 = time.perf_counter()
+        grid_path()
+        t7b = time.perf_counter() - t7
+    log(f"[phase 7] multi-host {t7a:.1f}s + grid {t7b:.1f}s = {t7a + t7b:.1f}s")
     k4_entry = entry_path()
     prof = profile_path()
     roof = roofline_path()
@@ -1252,6 +1445,7 @@ def main(argv=None) -> int:
     log(f"[k6] SLOTS at 131,072 reads: {main_chunk['ms']:.3f} ms, bound "
         f"{1e3 * 2 * main_chunk['chars'] * roofline.ADAPTER_OPS_PER_CHAR_STRAND / ceiling:.3f}"
         f" ms ({gpu})")
+    log(f"[total] chip_smoke: {time.perf_counter() - t_start:.1f}s")
     log(json.dumps({"kernels": kernels}))
     log(gpu)
     log(json.dumps({"ok": True, "device": {

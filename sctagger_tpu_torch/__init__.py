@@ -10,10 +10,11 @@ copies under the same module names. It runs on the card; the CPU only when asked
 ``SCTAG_DEVICE=cpu`` for the CLI).
 
 Ported: the four subcommands (``extract_lr_bc``, ``extract_sr_bc``,
-``extract_sr_bc_from_lr``, ``match_trie``) with batch checkpoint/resume, the
-``pipeline`` runner, the ``SCTAG_PROFILE`` trace, the single-device
-``entry()``, and the roofline and match-profile tools. Not yet: more than
-one host or card (``--n-hosts > 1`` raises NotImplementedError).
+``extract_sr_bc_from_lr``, ``match_trie``) with batch checkpoint/resume,
+multi-host runs (``--n-hosts``; fs or gloo transport) and the in-process
+device grid, the ``pipeline`` runner, the ``SCTAG_PROFILE`` trace,
+``entry()`` and ``dryrun_multichip()``, and the roofline and match-profile
+tools.
 
 Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   runtime.py          device selection (cuda; cpu only when asked)
@@ -26,6 +27,10 @@ Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   core/cutoff.py      the whitelist cutoffs (copy)
   io/fastq.py, io/tsv.py, io/bam.py  FASTQ, TSV and BAM I/O on the native
                       library (copies)
+  io/sharding.py      per-host record shards (copy)
+  parallel/multihost.py  HostGroup: cross-host reductions (fs or gloo),
+                      blobs, the part merge
+  parallel/mesh.py    the (data, model) device grid and its shard_* calls
   native/             the g++ host library: BAM/FASTQ/TSV I/O, range search,
                       the host adapter prefilters, the whitelist hash table
                       and probe (copied sources) + build.py
@@ -52,7 +57,8 @@ Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   csrc/match_full.cu  the hand-written Hopper (sm_90a) match kernel, four
                       epilogues
   csrc/myers_micro.cu the hand-written Hopper int32 instruction-rate microkernel
-  entry.py            entry(): one forward step (match_min) on a toy problem
+  entry.py            entry(): one forward step (match_min) on a toy problem;
+                      dryrun_multichip(n): the stages at 1 vs n devices
   tools/roofline.py   the int32 ceiling and the kernels' shares of it
   tools/profile_match.py  the match passes timed at the profile shape
 """

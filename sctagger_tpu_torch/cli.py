@@ -7,6 +7,9 @@ Usage: python -m sctagger_tpu_torch extract_lr_bc -r READS.fq [...]
        python -m sctagger_tpu_torch extract_sr_bc_from_lr -i LR.tsv.gz -wl WL.txt.gz [...]
        python -m sctagger_tpu_torch match_trie -lr LR.tsv -sr SR.tsv [...]
        python -m sctagger_tpu_torch pipeline -c config.yaml [--from-lr-only]
+
+Each subcommand takes --n-hosts N --host-id H [--sync-dir D]
+[--coordinator host:port] for a multi-host run (parallel/multihost.py).
 """
 
 from __future__ import annotations
@@ -114,9 +117,10 @@ def parse_args(argv=None):
                        help="Shared dir for cross-host exchange. Default: "
                             "derived from the outfile + a job content key")
         g.add_argument("--coordinator", type=str, default=None,
-                       help="jax.distributed coordinator address host:port; "
-                            "when set, reductions ride JAX collectives "
-                            "instead of the shared filesystem")
+                       help="torch.distributed (gloo) rendezvous address "
+                            "host:port, host 0 listening; when set, "
+                            "reductions ride gloo collectives instead of the "
+                            "shared filesystem")
 
     # Additive surface (not in the reference): the Snakefile-equivalent runner.
     p_pl = subparsers.add_parser("pipeline")
@@ -189,6 +193,20 @@ def parse_range_strings(range_strs):
 def main(argv=None):
     args = parse_args(argv)
     print(args)  # the reference echoes its arguments (scTagger.py:849)
+    if getattr(args, "coordinator", None) and getattr(args, "n_hosts", 1) > 1:
+        # one gloo rank per host for the stage's reductions, closed after it
+        from .parallel.multihost import close_gloo, init_gloo
+
+        init_gloo(args.coordinator, args.host_id, args.n_hosts)
+        try:
+            _dispatch(args)
+        finally:
+            close_gloo()
+        return
+    _dispatch(args)
+
+
+def _dispatch(args) -> None:
     if args.subcommand == "extract_lr_bc":
         from .stages import extract_lr_bc
 

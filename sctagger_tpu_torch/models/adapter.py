@@ -24,6 +24,9 @@ One code path serves every device:
   4. '-' reads recover their alignment starts by a reverse SHW pass over
      fixed 2m-wide windows (k <= m+d-1 positions can be optimal, so the
      window is lossless).
+
+With several devices (parallel/mesh.py) steps 2 and 3 split each chunk or
+batch over the grid's data axis; step 4 stays on the first device.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from ..ops.myers import (
     scores_scan,
     scores_scan_mw,
 )
+from ..parallel.mesh import local_mesh, shard_adapter_scan, shard_hw_block
 from ..runtime import resolve_device
 from ..utils import PROF, _PROF_LOCK, batch_iter, full_fast, prof_timer, round_up
 
@@ -160,7 +164,9 @@ def scan_adapters(
 class _KernelPath:
     """Reads through K6 in chunks of length-sorted reads: a worker thread
     packs the next chunks while this thread launches one and collects its
-    rows. Use as a context manager; leaving it normally drains the queue."""
+    rows. With several devices (parallel/mesh.py) a chunk scales with the
+    grid's data width and splits over it. Use as a context manager; leaving
+    it normally drains the queue."""
 
     def __init__(self, seqs, peq2, m: int, dev, acc: _Acc, progress: bool):
         self.seqs = seqs
@@ -169,10 +175,14 @@ class _KernelPath:
         self.dev = dev
         self.acc = acc
         self.progress = progress
+        self.mesh = local_mesh(model_parallel=1, device=dev)
+        n_data = self.mesh.shape["data"] if self.mesh is not None else 1
+        self.chunk = CHUNK_READS * n_data
         if dev.type == "cuda":  # one chunk's text may take 1/8 of free memory
-            self.budget = torch.cuda.mem_get_info(dev)[0] // 8
+            cards = {row[0] for row in self.mesh.devices} if self.mesh else {dev}
+            self.budget = sum(torch.cuda.mem_get_info(d)[0] // 8 for d in cards)
         else:
-            self.budget = 1 << 28
+            self.budget = (1 << 28) * n_data
         self.pool = ThreadPoolExecutor(1)
         self.queue: deque = deque()
 
@@ -188,9 +198,9 @@ class _KernelPath:
         return False
 
     def _chunk_len(self, lens_sorted: np.ndarray) -> int:
-        """Reads of the next chunk: at most CHUNK_READS, and their padded
+        """Reads of the next chunk: at most self.chunk, and their padded
         rows within the byte budget (rows grow along the sorted lengths)."""
-        rb = row_bytes(lens_sorted[:CHUNK_READS])
+        rb = row_bytes(lens_sorted[: self.chunk])
         fits = np.arange(1, rb.size + 1) * rb <= self.budget
         return max(1, int(fits.sum()))
 
@@ -223,9 +233,16 @@ class _KernelPath:
                     " chars", file=sys.stderr,
                 )
             with prof_timer("scan.kernel"):  # upload, launch and wait
-                out = adapter_scan(
-                    _to(text, self.dev), _to(lens, self.dev), self.peq, self.m
-                ).cpu().numpy()
+                if self.mesh is not None:
+                    out = shard_adapter_scan(
+                        self.mesh, torch.from_numpy(text), torch.from_numpy(lens),
+                        self.peq, self.m,
+                    )
+                else:
+                    out = adapter_scan(
+                        _to(text, self.dev), _to(lens, self.dev), self.peq, self.m
+                    )
+                out = out.cpu().numpy()
             with prof_timer("scan.collect"):
                 _kernel_collect(out, sub, self.acc, junk)
             _count("scan.kernel_reads", sub.size)
@@ -246,6 +263,8 @@ def _finalize_scan(
             print(f"[scan] mask fallback for {ov.size} reads", file=sys.stderr)
         single = m <= MAX_PATTERN_LEN
         _count("scan.mask_kernel_reads" if single else "scan.mask_reads", ov.size)
+        # several devices: each batch splits over the grid's data axis
+        mesh = local_mesh(model_parallel=1, device=dev)
         with prof_timer("scan.mask_fallback"):
             if single:
                 peq = prep_peq(peq2)
@@ -253,11 +272,18 @@ def _finalize_scan(
             else:
                 peq_t = _to(peq2, dev)
                 batch = MASK_BATCH
+            if mesh is not None:
+                batch *= mesh.shape["data"]
             for s, e in batch_iter(ov.size, batch):
                 sub = ov[s:e]
                 L = round_up(max(int(lengths[sub].max()), 1), 32)
                 codes, lens = encode_rows(seqs, sub, pad_to=L)
-                if single:
+                if mesh is not None:
+                    d, bits = shard_hw_block(
+                        mesh, torch.from_numpy(codes), torch.from_numpy(lens), peq2, m
+                    )
+                    _mask_collect(d.cpu().numpy(), bits.cpu().numpy(), sub, acc)
+                elif single:
                     d, bits = adapter_mask(_to(codes, dev), _to(lens, dev), peq, m)
                     _mask_collect(d.T.cpu().numpy(), bits.cpu().numpy(), sub, acc)
                 else:

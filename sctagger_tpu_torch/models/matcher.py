@@ -12,8 +12,11 @@ Reads with more than TIES_K ties escalate to a full best matrix
 (match_best) and a top-k over it.
 
 One dispatch loop serves every device: on CUDA the kernels run, on the CPU
-their plain versions (the same rows). Patterns longer than 32 bp take the
-multi-word plain version on every device (the kernels are single-word).
+their plain versions (the same rows). With several devices
+(parallel/mesh.py) each chunk splits over the (data, model) grid and the
+slices merge exactly; escalation stays on the first device. Patterns longer
+than 32 bp take the multi-word plain version on one device (the kernels are
+single-word).
 """
 
 from __future__ import annotations
@@ -40,6 +43,7 @@ from ..core.packing import (
 )
 from ..ops.match_cuda import (
     BIG,
+    DEF_BP,
     DEF_BR,
     TIES_K,
     match_best,
@@ -55,6 +59,7 @@ from ..ops.myers import (
     build_peq_multi_mw,
     match_best_mw_t,
 )
+from ..parallel.mesh import local_mesh, shard_match_full, shard_match_full_mp
 from ..runtime import resolve_device
 from ..utils import batch_iter, full_fast
 
@@ -283,8 +288,20 @@ def match_segments(
         return codes, None
 
     # ---- device sweep ------------------------------------------------------
+    # A process with several usable devices splits every chunk over a
+    # (data, model) grid (parallel/mesh.py): reads over 'data', and under
+    # SCTAG_MODEL_PARALLEL the patterns over 'model' with the exact tie
+    # merge. One device: the one-device dispatch, the same rows either way.
+    mesh = None if mw else local_mesh(divisor=PASS1_CHUNK // DEF_BR, device=dev)
+    dp = mesh.shape["data"] if mesh is not None else 1
+    mp = mesh.shape["model"] if mesh is not None else 1
     if mw:
         peq_dev = torch.from_numpy(peq).to(dev)
+    elif mesh is not None:
+        # pattern rows split over 'model' in whole kernel tiles
+        peq_dev = torch.from_numpy(prep_peq_cols(peq, bp=mp * DEF_BP)).to(
+            mesh.devices[0][0]
+        )
     else:
         peq_dev = torch.from_numpy(prep_peq_cols(peq)).to(dev)
     chunks: list[tuple[np.ndarray, np.ndarray]] = []  # (sub, codes)
@@ -304,26 +321,34 @@ def match_segments(
     def _dispatch(sub: np.ndarray, codes: np.ndarray) -> None:
         ll = lengths[sub]
         ls = int(ll.max()) or 1
-        seg_T = prep_segs_T(codes, ls=ls)
-        seg_d = torch.from_numpy(seg_T).to(dev, non_blocking=True)
-        if mw:
-            rows = match_full_mw_ref(seg_d, peq_dev, bl)
-        elif ll.min() == ll.max():
-            rows = match_full(seg_d, peq_dev, bl)
-        else:
+        # on a grid, reads pad to whole DEF_BR blocks on every data slice
+        seg_T = prep_segs_T(codes, ls=ls, br=DEF_BR * dp)
+        ml = None
+        if ll.min() != ll.max():
             # ragged chunk: each DEF_BR block stops at its own max length
             ml = np.zeros(seg_T.shape[1], np.int32)
             ml[: sub.size] = ll
-            ml = ml.reshape(1, -1, DEF_BR).max(axis=2)
-            rows = match_full_dynls(seg_d, peq_dev, torch.from_numpy(ml).to(dev), bl)
+            ml = torch.from_numpy(ml.reshape(1, -1, DEF_BR).max(axis=2))
+        if mesh is not None:
+            shard = shard_match_full if mp == 1 else shard_match_full_mp
+            rows = shard(mesh, torch.from_numpy(seg_T), peq_dev, bl, maxlens=ml)
+        else:
+            seg_d = torch.from_numpy(seg_T).to(dev, non_blocking=True)
+            if mw:
+                rows = match_full_mw_ref(seg_d, peq_dev, bl)
+            elif ml is None:
+                rows = match_full(seg_d, peq_dev, bl)
+            else:
+                rows = match_full_dynls(seg_d, peq_dev, ml.to(dev), bl)
         ready = None
-        if dev.type == "cuda":
+        if rows.device.type == "cuda":
             # copy into pinned memory behind the kernel on the same stream,
             # so draining this chunk never waits for chunks queued after it
-            host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-            host.copy_(rows, non_blocking=True)
-            ready = torch.cuda.Event()
-            ready.record()
+            with torch.cuda.device(rows.device):
+                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                host.copy_(rows, non_blocking=True)
+                ready = torch.cuda.Event()
+                ready.record(torch.cuda.current_stream(rows.device))
             rows = host
         chunks.append((sub, codes))
         tie_by_chunk.append(None)
@@ -409,7 +434,8 @@ def match_segments(
         print(
             f"[match] {counts['prefilter_resolved']}/{n} reads resolved by the "
             f"host prefilter; {counts['device_reads']} reads in "
-            f"{counts['device_chunks']} chunks on {dev.type}",
+            f"{counts['device_chunks']} chunks on {dev.type}"
+            + (f" over a {dp} x {mp} (data x model) grid" if mesh is not None else ""),
             file=sys.stderr,
         )
 

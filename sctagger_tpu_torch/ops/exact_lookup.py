@@ -168,7 +168,12 @@ def probe_segments(segments, sorted_keys: np.ndarray, values: np.ndarray,
 def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
     """The device probe driver: per step, one native encode + 2-bit pack of
     up to ``chunk`` rows, probe_rows_packed on ``dev``, the per-row results
-    copied back. Junk rows (in-sequence non-ACGT) go to the host probe."""
+    copied back. Junk rows (in-sequence non-ACGT) go to the host probe.
+    With several devices (parallel/mesh.py) each step holds ``chunk`` rows
+    per data slice and splits over the grid, the key table copied to each
+    device once."""
+    from ..parallel.mesh import local_mesh, replicate, shard_probe
+
     n = len(segments)
     counts = np.zeros(n, dtype=np.int64)
     single_val = np.zeros(n, dtype=np.int64)
@@ -176,8 +181,14 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
         return counts, single_val
     L = round_up(max(int(seq_lengths(segments).max()), k), 4)  # L % 4 == 0
     rows = max(1, min(chunk, _ROW_BUDGET // L))
-    sk = torch.from_numpy(sorted_keys.astype(np.int64)).to(dev)
-    vv = torch.from_numpy(values.astype(np.int64)).to(dev)
+    sk = torch.from_numpy(sorted_keys.astype(np.int64))
+    vv = torch.from_numpy(values.astype(np.int64))
+    mesh = local_mesh(model_parallel=1, device=dev)
+    if mesh is not None:
+        rows *= mesh.shape["data"]
+        tables = replicate(mesh, sk, vv)
+    else:
+        sk, vv = sk.to(dev), vv.to(dev)
     enc_packed = getattr(segments, "encode_packed", None)
     junk_rows: list[np.ndarray] = []
     for s in range(0, n, rows):
@@ -193,10 +204,13 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
         lens = np.where(junk, 0, lens).astype(np.int32)
         if junk.any():
             junk_rows.append(idx[junk])
-        c, v = probe_rows_packed(
-            sk, vv, torch.from_numpy(np.ascontiguousarray(pk)).to(dev),
-            torch.from_numpy(lens).to(dev), k, L,
-        )
+        pk_t = torch.from_numpy(np.ascontiguousarray(pk))
+        if mesh is not None:
+            c, v = shard_probe(mesh, tables, pk_t, torch.from_numpy(lens), k, L)
+        else:
+            c, v = probe_rows_packed(
+                sk, vv, pk_t.to(dev), torch.from_numpy(lens).to(dev), k, L
+            )
         counts[idx] = c.cpu().numpy()
         single_val[idx] = v.cpu().numpy()
     if junk_rows:

@@ -13,8 +13,12 @@ Optional batch-granular checkpointing: with SCTAG_CHECKPOINT_DIR set, the
 reads are scanned in SCTAG_CHECKPOINT_BATCH-read batches whose scan results
 persist as npz parts (pipeline/checkpoint); range detection, filtering and
 the write re-run from the concatenated parts, so a re-run scans only the
-missing batches and writes the same bytes. Single host only: --n-hosts > 1
-raises NotImplementedError (ROADMAP.md, Queue A).
+missing batches and writes the same bytes.
+
+With --n-hosts > 1 each host scans a contiguous read shard (_run_multi: no
+streaming, no checkpointing, no plot); the adapter-location histograms merge
+across hosts so every host detects the same ranges, and host 0 merges the
+hosts' rows into the one gz TSV.
 """
 
 from __future__ import annotations
@@ -32,8 +36,10 @@ from ..core.ranges import (
     RangeMembership,
     detect_ranges,
     filter_alignments,
+    find_peak_ranges_hist,
 )
 from ..io.fastq import read_fastqs, read_fastqs_stream
+from ..io.sharding import read_fastq_shard
 from ..io.tsv import open_out, write_lr_tsv_gz_native
 from ..models.adapter import (
     AdapterScanResult,
@@ -42,6 +48,7 @@ from ..models.adapter import (
     scan_adapters_stream,
 )
 from ..observability import progress_bar, stage_scope
+from ..parallel.multihost import make_host_group
 from ..pipeline.checkpoint import PartStore, job_key
 from ..runtime import resolve_device
 from ..utils import PROF, batch_iter, prof_timer
@@ -49,15 +56,68 @@ from ..utils import PROF, batch_iter, prof_timer
 
 def run(args, device=None) -> None:
     """Run the stage on ``device`` (runtime.resolve_device)."""
-    if (getattr(args, "n_hosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "sctagger_tpu_torch extract_lr_bc: --n-hosts > 1 is not ported yet "
-            "(ROADMAP.md Queue A)"
-        )
     dev = resolve_device(device)
     PROF.clear()  # per-run phase timers (utils.prof_timer)
     with stage_scope("extract_lr_bc") as stats:
-        _run(args, stats, dev)
+        n_hosts = getattr(args, "n_hosts", 1) or 1
+        if n_hosts > 1:
+            _run_multi(args, stats, dev, n_hosts)
+        else:
+            _run(args, stats, dev)
+
+
+def _detect_ranges_dist(group, locs_f: np.ndarray, locs_r: np.ndarray):
+    """Cross-host range detection: the global int64 min and max of each
+    strand's locations, then the SUM of its location histogram, so every
+    host runs the same peak extraction."""
+    quiet = group.host_id != 0
+    out = []
+    imax = np.iinfo(np.int64).max
+    imin = np.iinfo(np.int64).min
+    for locs, label in ((locs_f, "+"), (locs_r, "-")):
+        locs = np.asarray(locs, dtype=np.int64)
+        lmin = int(locs.min()) if locs.size else imax
+        lmax = int(locs.max()) if locs.size else imin
+        gmin = int(group.allreduce(np.array([lmin], np.int64), "min")[0])
+        gmax = int(group.allreduce(np.array([lmax], np.int64), "max")[0])
+        if gmin > gmax:  # no qualifying locations on any host
+            ranges = []
+        else:
+            F = np.bincount(locs - gmin, minlength=gmax - gmin + 1)
+            F = group.allreduce(F.astype(np.int64), "sum")
+            ranges = find_peak_ranges_hist(F.astype(np.float64), gmin, quiet=quiet)
+        if not quiet:
+            print(f"Found these ranges on {label} strand:\t{ranges}", file=sys.stderr)
+        out.append(ranges)
+    return out
+
+
+def _run_multi(args, stats, dev, n_hosts: int) -> None:
+    """This host's contiguous shard of the reads: one-shot scan, then the
+    shared tail with the cross-host range detection and part merge."""
+    assert args.plotfile is None, "plotting is single-host only"
+    if os.environ.get("SCTAG_CHECKPOINT_DIR"):
+        # shard-dependent batch contents would collide on one job key
+        print("checkpointing disabled for multi-host runs", file=sys.stderr)
+    group = make_host_group(
+        args,
+        "extract_lr_bc",
+        list(args.reads),
+        {"sa": args.short_read_adapter, "nb": args.num_bp_after},
+    )
+    with stats.timer("read_fastq"), prof_timer("stage.read_fastq"):
+        _, rnames, seqs = read_fastq_shard(
+            args.reads, args.host_id, n_hosts, args.gzipped
+        )
+    print(
+        f"Aligning {args.short_read_adapter} to {len(seqs)} reads",
+        file=sys.stderr,
+    )
+    with stats.timer("adapter_scan"):
+        scan = scan_adapters(seqs, args.short_read_adapter, progress=True, device=dev)
+    stats.count("reads", len(seqs))
+    _emit(args, stats, rnames, seqs, scan, group)
+    stats.timers.update(PROF)
 
 
 def _stream_batches(q):
@@ -206,23 +266,28 @@ def _scan_checkpointed(args, stats, dev, store, batch: int, seqs):
     })
 
 
-def _emit(args, stats, rnames, seqs, scan) -> None:
-    """Shared stage tail: range detection -> filtering -> TSV -> plot."""
+def _emit(args, stats, rnames, seqs, scan, group=None) -> None:
+    """Shared stage tail: range detection -> filtering -> TSV -> plot.
+    With a multi-host ``group`` the ranges come from the merged histograms
+    and the rows go through the group's part merge."""
     rf_t = prof_timer("stage.ranges_filter").__enter__()
     preset = args.ranges
     if len(preset[0]) + len(preset[1]) == 0:
-        print(
-            "No ranges for SR adapters have been preset. "
-            "Detecting directly from data...",
-            file=sys.stderr,
-        )
+        if group is None or group.host_id == 0:
+            print(
+                "No ranges for SR adapters have been preset. "
+                "Detecting directly from data...",
+                file=sys.stderr,
+            )
         read_of = np.repeat(np.arange(len(seqs)), scan.loc_counts)
         in_window = (scan.dists >= 0) & (scan.dists <= 5)
         sel = in_window[read_of]
         is_fwd = (scan.strands == 0)[read_of]
-        ranges = detect_ranges(
-            scan.flat_locs[sel & is_fwd], scan.flat_locs[sel & ~is_fwd]
-        )
+        locs_f, locs_r = scan.flat_locs[sel & is_fwd], scan.flat_locs[sel & ~is_fwd]
+        if group is None:
+            ranges = detect_ranges(locs_f, locs_r)
+        else:
+            ranges = _detect_ranges_dist(group, locs_f, locs_r)
         memberships = [RangeMembership(r, include_end=False) for r in ranges]
     else:
         memberships = [RangeMembership(r, include_end=True) for r in preset]
@@ -258,6 +323,14 @@ def _emit(args, stats, rnames, seqs, scan) -> None:
                 yield f"{rname}\t{dist[i]}\t{loc[i]}\t{substr(i, si, ei or None)}\n"
             else:
                 yield f"{rname}\t-1\tNA\t\n"
+
+    if group is not None:
+        with prof_timer("stage.write"):
+            group.write_part_and_merge(
+                args.outfile, "".join(_rows()),
+                lambda p: open_out(p, force_gzip=True),
+            )
+        return
 
     with prof_timer("stage.write"):
         wrote = False

@@ -19,14 +19,20 @@ byte ranges (SCTAG_SR_BATCH_BYTES each) through PartStore — each range's
 (barcodes, counts, firsts) persists as an npz part, so a re-run scans only
 the missing ranges. The merge ranks by (count desc, global first-appearance
 asc), which equals the sequential scan's stable argsort: outputs are
-byte-identical with or without checkpointing. Single host only: --n-hosts
-> 1 raises NotImplementedError (ROADMAP.md Queue A).
+byte-identical with or without checkpointing.
+
+With --n-hosts > 1 each host scans its own compressed byte range
+(_extract_multi; no checkpointing) and host 0 merges the counts and writes
+the output.
 """
 
 from __future__ import annotations
 
+import io as _io
+import json
 import os
 import sys
+import time
 
 import numpy as np
 
@@ -34,6 +40,7 @@ from ..core.cutoff import barcode_hist, elbow_cutoff
 from ..io.bam import bam_file_size, extract_cb_counts, extract_cb_counts_range
 from ..io.tsv import open_out
 from ..observability import progress_bar, stage_scope
+from ..parallel.multihost import make_host_group
 from ..pipeline.checkpoint import PartStore, job_key
 
 # compressed bytes per checkpoint batch: small enough that a crash loses
@@ -43,40 +50,22 @@ DEF_BATCH_BYTES = 512 << 20
 
 
 def run(args) -> None:
-    if (getattr(args, "n_hosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "sctagger_tpu_torch extract_sr_bc: --n-hosts > 1 is not ported yet "
-            "(ROADMAP.md Queue A)"
-        )
     with stage_scope("extract_sr_bc") as stats:
         _run(args, stats)
 
 
 def _run(args, stats) -> None:
     print(f"\n====\nExtracting SR barcodes from {args.input}:")  # stdout, as the reference (scTagger.py:434)
-    # the scan itself is parameter-free (thresh/step/cap only affect the
-    # cheap post-processing), so parts survive parameter tweaks — but the
-    # batch byte size defines the per-part scan ranges, so it keys the store
-    bb = int(os.environ.get("SCTAG_SR_BATCH_BYTES", DEF_BATCH_BYTES))
-    store = PartStore(
-        "extract_sr_bc",
-        job_key("extract_sr_bc", [args.input], {"v": 1, "bb": bb}),
-    )
-    if store.enabled:
+    n_hosts = getattr(args, "n_hosts", 1) or 1
+    if n_hosts > 1:
         with stats.timer("bam_scan"):
-            parts = _scan_checkpointed(args, store, bb)
-        print("\n=====\nCounting and sorting barcodes")
-        with stats.timer("rank"):
-            top, total = _merge_counts(parts)
-            top = top[: args.max_barcode_cnt]
+            merged = _extract_multi(args, n_hosts)
+        if merged is None:
+            return  # non-zero hosts: host 0 writes the single output file
+        top, total = merged
+        top = top[: args.max_barcode_cnt]
     else:
-        with stats.timer("bam_scan"):
-            barcodes, counts, total = extract_cb_counts(args.input)
-
-        print("\n=====\nCounting and sorting barcodes")
-        with stats.timer("rank"):
-            order = np.argsort(-counts, kind="stable")[: args.max_barcode_cnt]
-            top = [(barcodes[i], int(counts[i])) for i in order]
+        top, total = _extract_single(args, stats)
 
     stats.count("alignments_kept", int(total))
     stats.count("unique_barcodes", len(top))
@@ -102,6 +91,35 @@ def _run(args, stats) -> None:
             outfile.write(f"{b}\t{c}\n")
         if outfile is not sys.stdout:
             outfile.close()
+
+
+def _extract_single(args, stats):
+    """One host: the whole-file scan, or the checkpointed byte ranges.
+    Returns (top, total)."""
+    # the scan itself is parameter-free (thresh/step/cap only affect the
+    # cheap post-processing), so parts survive parameter tweaks — but the
+    # batch byte size defines the per-part scan ranges, so it keys the store
+    bb = int(os.environ.get("SCTAG_SR_BATCH_BYTES", DEF_BATCH_BYTES))
+    store = PartStore(
+        "extract_sr_bc",
+        job_key("extract_sr_bc", [args.input], {"v": 1, "bb": bb}),
+    )
+    if store.enabled:
+        with stats.timer("bam_scan"):
+            parts = _scan_checkpointed(args, store, bb)
+        print("\n=====\nCounting and sorting barcodes")
+        with stats.timer("rank"):
+            top, total = _merge_counts(parts)
+            top = top[: args.max_barcode_cnt]
+    else:
+        with stats.timer("bam_scan"):
+            barcodes, counts, total = extract_cb_counts(args.input)
+
+        print("\n=====\nCounting and sorting barcodes")
+        with stats.timer("rank"):
+            order = np.argsort(-counts, kind="stable")[: args.max_barcode_cnt]
+            top = [(barcodes[i], int(counts[i])) for i in order]
+    return top, total
 
 
 def _bam_threads() -> int:
@@ -172,3 +190,88 @@ def _scan_checkpointed(args, store: PartStore, batch: int) -> list:
         bar.update(1)
     bar.close()
     return parts
+
+
+def _pack_counts(barcodes, counts, firsts, total: int, kept: int) -> bytes:
+    """Binary npz payload of one host's scan for the multi-host gather."""
+    buf = _io.BytesIO()
+    np.savez_compressed(
+        buf,
+        barcodes=np.frombuffer("\n".join(barcodes).encode(), np.uint8),
+        counts=np.asarray(counts, np.int64),
+        firsts=np.asarray(firsts, np.int64),
+        meta=np.array([total, kept], np.int64),
+    )
+    return buf.getvalue()
+
+
+def _unpack_counts(blob: bytes):
+    with np.load(_io.BytesIO(blob)) as z:
+        raw = z["barcodes"].tobytes().decode()
+        barcodes = raw.split("\n") if raw else []
+        return (
+            barcodes,
+            z["counts"],
+            z["firsts"],
+            int(z["meta"][0]),
+            int(z["meta"][1]),
+        )
+
+
+def _extract_multi(args, n_hosts: int):
+    """Sharded BAM scan over N hosts: each host inflates and parses a
+    contiguous compressed byte range (block-aligned in the native reader)
+    CONCURRENTLY. Records spanning a shard boundary belong to the shard
+    where they START; host h > 0 discovers its first record boundary by
+    self-synchronizing record-chain validation (bam_reader.cpp
+    find_record_start), then RECONCILES the discovered offset against the
+    authoritative spill from host h-1 (the ``spill.h{h}`` blob) once it
+    arrives. On a mismatch, or when self-sync finds no boundary, the host
+    rescans with the true skip, so output bytes never depend on the
+    heuristic. Each host publishes its own spill only after reconciling.
+
+    Per-host (scan_start, scan_end) wall times are published under
+    ``scanwin.h{h}`` for overlap diagnostics (asserted in tests).
+
+    The merge (_merge_counts) reconstructs the exact single-host output.
+    Returns (top, total) on host 0, None elsewhere."""
+    h = args.host_id
+    group = make_host_group(
+        args, "extract_sr_bc", [args.input],
+        {"t": args.thresh, "s": args.step_size, "m": args.max_barcode_cnt},
+    )
+    size = bam_file_size(args.input)
+    bounds = [size * i // n_hosts for i in range(n_hosts + 1)]
+    t0 = time.monotonic()
+    if h == 0:
+        scan = extract_cb_counts_range(
+            args.input, bounds[0], bounds[1], 0, parse_header=True
+        )
+        found = 0
+    else:
+        try:
+            scan = extract_cb_counts_range(
+                args.input, bounds[h], bounds[h + 1], -1, parse_header=False
+            )
+            found = scan[6]
+        except RuntimeError:
+            # no boundary validated, or a parse error from a falsely
+            # accepted one: the speculative scan is best-effort, so every
+            # failure routes to the authoritative-skip rescan below
+            scan, found = None, None
+    t1 = time.monotonic()
+    group.put_bytes(f"scanwin.h{h}", json.dumps([t0, t1]).encode())
+    if h > 0:
+        true_skip = int.from_bytes(group.get_bytes(f"spill.h{h}"), "little")
+        if scan is None or found != true_skip:
+            scan = extract_cb_counts_range(
+                args.input, bounds[h], bounds[h + 1], true_skip,
+                parse_header=False,
+            )
+    barcodes, counts, firsts, total, kept, spill, _ = scan
+    if h + 1 < n_hosts:
+        group.put_bytes(f"spill.h{h + 1}", int(spill).to_bytes(8, "little"))
+    parts = group.gather_bytes("srcounts", _pack_counts(barcodes, counts, firsts, total, kept))
+    if parts is None:
+        return None
+    return _merge_counts(_unpack_counts(blob) for blob in parts)

@@ -13,8 +13,11 @@ chunked threshold cutoff -> TSV `barcode \\t count` (gzipped when -o given).
 
 With SCTAG_CHECKPOINT_DIR set, the probe runs in SCTAG_CHECKPOINT_BATCH-row
 batches whose (counts, single_val) arrays persist as npz parts; a re-run
-probes only the missing batches. Single host only: --n-hosts > 1 raises
-NotImplementedError (ROADMAP.md Queue A).
+probes only the missing batches.
+
+With --n-hosts > 1 each host probes a contiguous row shard of the LR TSV
+(no checkpointing); the counts and first occurrences merge across hosts
+(_rank_multi) and host 0 writes the output.
 """
 
 from __future__ import annotations
@@ -26,24 +29,21 @@ import numpy as np
 
 from ..core.cutoff import chunked_cutoff
 from ..core.packing import rev_compl
+from ..io.sharding import read_tsv_shard
 from ..io.tsv import open_maybe_gz, open_out, read_lr_segments_tsv
 from ..observability import progress_bar, stage_scope
 from ..ops.exact_lookup import build_key_table, host_dict_fallback, probe_segments
 from ..ops.topk_count import count_and_rank_host
+from ..parallel.multihost import make_host_group
 from ..pipeline.checkpoint import PartStore, job_key
 from ..runtime import resolve_device
-from ..utils import batch_iter
+from ..utils import batch_iter, full_fast
 
 
 def run(args, device=None) -> None:
     """Run the stage. The device probe (``SCTAG_PROBE=device``) runs on
     ``device`` (runtime.resolve_device, resolved before any input is read);
     the default host probe needs no device."""
-    if (getattr(args, "n_hosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "sctagger_tpu_torch extract_sr_bc_from_lr: --n-hosts > 1 is not "
-            "ported yet (ROADMAP.md Queue A)"
-        )
     dev = None
     if os.environ.get("SCTAG_PROBE", "host") == "device":
         dev = resolve_device(device)
@@ -52,6 +52,8 @@ def run(args, device=None) -> None:
 
 
 def _run(args, stats, dev) -> None:
+    n_hosts = getattr(args, "n_hosts", 1) or 1
+    multi = n_hosts > 1
     with stats.timer("read_whitelist"):
         infile = open_maybe_gz(args.barcode_whitelist)
         print(f"Reading whiltelist barcodes from: {args.barcode_whitelist}")
@@ -61,10 +63,21 @@ def _run(args, stats, dev) -> None:
 
     print(f"\n=====\nMatching exact barcodes on long-reads: {args.input}")
     with stats.timer("read_lr_tsv"):
-        _, _, locs, segs = read_lr_segments_tsv(args.input)
-        keep = [i for i, p in enumerate(locs) if p != "NA"]
-        take = getattr(segs, "take", None)
-        segments = take(keep) if take else [segs[i] for i in keep]
+        if multi:
+            _, lines = read_tsv_shard(args.input, args.host_id, n_hosts)
+            # tolerant parse (index, not unpack), as the native reader of
+            # the single-host path: rows with > 4 fields behave the same at
+            # any host count
+            segments = []
+            for line in lines:
+                c = line.split("\t")
+                if c[2] != "NA":
+                    segments.append(c[3])
+        else:
+            _, _, locs, segs = read_lr_segments_tsv(args.input)
+            keep = [i for i, p in enumerate(locs) if p != "NA"]
+            take = getattr(segs, "take", None)
+            segments = take(keep) if take else [segs[i] for i in keep]
     stats.count("segments", len(segments))
 
     with stats.timer("key_table"):
@@ -90,10 +103,15 @@ def _run(args, stats, dev) -> None:
     stats.count("matched_segments", int(matched.sum()))
     with stats.timer("rank"):
         vals = np.abs(single_val[matched]).astype(np.uint32)
-        # host count + rank by (count desc, first-increment asc) — identical
-        # to the reference's insertion-ordered Counter + stable reverse sort
-        # (scTagger.py:826-828)
-        keys_ranked, counts_ranked = count_and_rank_host(vals)
+        if multi:
+            keys_ranked, counts_ranked = _rank_multi(args, barcodes, vals, n_hosts)
+            if args.host_id != 0:
+                return  # host 0 writes the single small output file
+        else:
+            # host count + rank by (count desc, first-increment asc) —
+            # identical to the reference's insertion-ordered Counter +
+            # stable reverse sort (scTagger.py:826-828)
+            keys_ranked, counts_ranked = count_and_rank_host(vals)
         print(f"\n=====\nFound {len(keys_ranked):,} unique barcodes on long-reads")
         sorted_bc = [
             (int(k), int(c)) for k, c in zip(keys_ranked, counts_ranked)
@@ -114,7 +132,10 @@ def _scan_with_checkpoint(args, segments, probe_fn):
     """Batch-granular scan cache for the whitelist probe (SCTAG_CHECKPOINT_DIR,
     like stage 1's scan cache): per-batch (counts, single_val) arrays persist
     as npz parts, so a killed run resumes at batch granularity with
-    byte-identical output."""
+    byte-identical output. Off for multi-host runs: shard-dependent batch
+    contents would collide on one job key."""
+    if (getattr(args, "n_hosts", 1) or 1) > 1:
+        return probe_fn(segments)
     # batch size defines the part spans, so it keys the store (stale-span
     # reuse guard; see pipeline/checkpoint.py)
     batch = int(os.environ.get("SCTAG_CHECKPOINT_BATCH", 250_000))
@@ -144,3 +165,32 @@ def _scan_with_checkpoint(args, segments, probe_fn):
     if not counts_parts:
         return np.zeros(0, np.int64), np.zeros(0, np.int64)
     return np.concatenate(counts_parts), np.concatenate(val_parts)
+
+
+def _rank_multi(args, barcodes, vals: np.ndarray, n_hosts: int):
+    """Cross-host count merge preserving the reference's tie order.
+
+    The reference ranks by (count desc, first-occurrence asc) over the global
+    single-stream row order. Shards are contiguous row ranges, so a matched
+    read's global insertion index = (# matched on earlier hosts) + local
+    index; counts SUM-merge and first-occurrence indices MIN-merge (int64,
+    the min identity included)."""
+    group = make_host_group(
+        args,
+        "extract_sr_bc_from_lr",
+        [args.input, args.barcode_whitelist],
+        {"t": args.thresh, "s": args.step_size, "m": args.max_barcode_cnt},
+    )
+    per_host = group.allgather_scalar(vals.size)
+    my_off = int(per_host[: args.host_id].sum())
+    B = len(barcodes)
+    cnt = np.bincount(vals, minlength=B).astype(np.int64)
+    first = full_fast(B, np.iinfo(np.int64).max, np.int64)
+    uniq, fidx = np.unique(vals, return_index=True)
+    first[uniq] = my_off + fidx
+    cnt = group.allreduce(cnt, "sum")
+    first = group.allreduce(first, "min")
+    nz = np.flatnonzero(cnt > 0)
+    order = np.lexsort((first[nz], -cnt[nz]))
+    ranked = nz[order]
+    return ranked.astype(np.uint32), cnt[ranked]

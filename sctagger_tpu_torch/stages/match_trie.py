@@ -17,8 +17,9 @@ input is matched in SCTAG_CHECKPOINT_BATCH-row batches whose rendered rows
 persist as part files; re-runs skip completed batches (pipeline/checkpoint).
 Batches are contiguous rid ranges and output rows are ascending-rid within a
 batch, so concatenating the parts reproduces the exact global output.
-Single host only: --n-hosts > 1 raises NotImplementedError (ROADMAP.md,
-Queue A).
+
+With --n-hosts > 1 each host matches a contiguous row shard of the LR TSV
+(_run_multi; no checkpointing) and host 0 merges the hosts' rows.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 from ..core.packing import rev_compl
+from ..io.sharding import read_tsv_shard
 from ..io.tsv import (
     open_out,
     read_lr_segments_tsv,
@@ -36,6 +38,7 @@ from ..io.tsv import (
 )
 from ..models.matcher import MatchContext, match_segments
 from ..observability import StageStats, progress_bar, stage_scope
+from ..parallel.multihost import make_host_group
 from ..pipeline.checkpoint import PartStore, job_key
 from ..runtime import resolve_device
 from ..utils import batch_iter
@@ -44,11 +47,6 @@ from ..utils import batch_iter
 def run(args, device=None) -> None:
     """Run the stage on ``device`` (runtime.resolve_device: the card unless
     asked for the CPU), resolved before any input is read."""
-    if (getattr(args, "n_hosts", 1) or 1) > 1:
-        raise NotImplementedError(
-            "sctagger_tpu_torch match_trie: --n-hosts > 1 is not ported yet "
-            "(ROADMAP.md Queue A)"
-        )
     dev = resolve_device(device)
     with stage_scope("match_trie") as stats:
         _run(args, stats, dev)
@@ -72,11 +70,16 @@ def _render_rows(result, names, segs, barcodes, rid_offset: int = 0) -> str:
 
 
 def _run(args, stats, device) -> None:
+    n_hosts = getattr(args, "n_hosts", 1) or 1
     with stats.timer("read"):
         barcodes = read_sr_barcodes_tsv(args.short_read_barcodes)
         print(f"There are {len(barcodes):,} SR barcodes", file=sys.stderr)
         barcode_lens = {len(b) for b in barcodes}
         assert barcode_lens == {args.barcode_length}, barcode_lens
+    if n_hosts > 1:
+        _run_multi(args, stats, device, barcodes, n_hosts)
+        return
+    with stats.timer("read"):
         names, _, _, segs = read_lr_segments_tsv(args.long_read_segments)
         print(f"There are {len(names):,} LRs", file=sys.stderr)
     stats.count("barcodes", len(barcodes))
@@ -220,3 +223,43 @@ def _run_checkpointed(args, stats, device, store, batch, names, segs,
         if outfile is not sys.stdout:
             outfile.close()
     return n_matched
+
+
+def _run_multi(args, stats, device, barcodes, n_hosts: int) -> None:
+    """Sharded flagship: contiguous LR row ranges per host, replicated
+    whitelist, host-0 part merge. Shards are contiguous global-rid ranges and
+    rows render in ascending rid within a shard, so concatenation reproduces
+    the single-stream sorted-by-rid output byte for byte (scTagger.py:777)."""
+    group = make_host_group(
+        args,
+        "match_trie",
+        [args.long_read_segments, args.short_read_barcodes],
+        {"mr": args.max_error, "bl": args.barcode_length},
+    )
+    _, lines = read_tsv_shard(args.long_read_segments, args.host_id, n_hosts)
+    names, segs = [], []
+    for line in lines:
+        c = line.split("\t")
+        names.append(c[0])
+        segs.append(c[3])
+    print(
+        f"[host {args.host_id}/{n_hosts}] {len(names):,} LRs in shard",
+        file=sys.stderr,
+    )
+    stats.count("barcodes", len(barcodes))
+    stats.count("reads", len(names))
+    with stats.timer("match"):
+        result = match_segments(
+            segments=segs,
+            barcodes=barcodes,
+            max_error=args.max_error,
+            progress=True,
+            device=device,
+            stats=stats,
+        )
+    with stats.timer("write"):
+        text = _render_rows(result, names, segs, barcodes)
+        group.write_part_and_merge(
+            args.outfile, text, lambda p: open_out(p, force_gzip=False)
+        )
+    stats.count("matched", int(result.rids.size))

@@ -131,14 +131,18 @@ def test_plotfile(tmp_path):
 
 
 def test_not_ported_options_raise(tmp_path, monkeypatch):
-    """--n-hosts > 1 raises, with or without SCTAG_CHECKPOINT_DIR (which
-    the stage supports: tests/test_torch_checkpoint.py)."""
+    """--n-hosts > 1 is ported (tests/test_torch_multihost_*.py): host 0
+    alone scans its shard, then waits for host 1 at the first cross-host
+    reduction and gives up after SCTAG_SYNC_TIMEOUT, with or without
+    SCTAG_CHECKPOINT_DIR, which multi-host runs ignore (no part store)."""
     fq = _fastq(tmp_path / "reads.fastq", np.random.default_rng(1), n_reads=5)
-    argv = ["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "o.tsv.gz")]
-    with pytest.raises(NotImplementedError, match="n-hosts"):
+    argv = ["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "o.tsv.gz"),
+            "--sync-dir", str(tmp_path / "sync")]
+    monkeypatch.setenv("SCTAG_SYNC_TIMEOUT", "0.2")
+    with pytest.raises(TimeoutError, match="red00001min.h1"):
         torch_main([*argv, "--n-hosts", "2"])
     monkeypatch.setenv("SCTAG_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
-    with pytest.raises(NotImplementedError, match="n-hosts"):
+    with pytest.raises(TimeoutError, match="multihost sync timeout"):
         torch_main([*argv, "--n-hosts", "2"])
     assert not (tmp_path / "ckpt").exists()
 

@@ -134,6 +134,7 @@ def test_missing_bam_and_n_hosts_raise(tmp_path):
         with pytest.raises(FileNotFoundError):
             main(["extract_sr_bc", "-i", str(tmp_path / "nope.bam"),
                   "-o", str(tmp_path / "o.tsv.gz")])
-    with pytest.raises(NotImplementedError, match="n-hosts"):
-        torch_main(["extract_sr_bc", "-i", "x.bam", "-o", str(tmp_path / "o.tsv.gz"),
-                    "--n-hosts", "2"])
+        # --n-hosts 2 is ported: the missing BAM raises the same way there
+        with pytest.raises(FileNotFoundError):
+            main(["extract_sr_bc", "-i", str(tmp_path / "x.bam"),
+                  "-o", str(tmp_path / "o.tsv.gz"), "--n-hosts", "2"])

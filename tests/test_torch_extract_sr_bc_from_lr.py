@@ -101,7 +101,9 @@ def test_cutoff_options(tmp_path, monkeypatch, extra):
 
 def test_stdout_and_n_hosts(tmp_path, capsys, monkeypatch):
     """Rows to stdout as the JAX CLI writes them; with the default host
-    probe no device is resolved; --n-hosts > 1 raises."""
+    probe no device is resolved; with --n-hosts 2, host 0 alone probes its
+    shard, then waits for host 1 at the first cross-host gather and gives
+    up after SCTAG_SYNC_TIMEOUT, writing no output."""
     monkeypatch.delenv("SCTAG_DEVICE", raising=False)
     rng = np.random.default_rng(8)
     wl, lr = _inputs(tmp_path, rng, "gz", n_rows=200)
@@ -111,5 +113,7 @@ def test_stdout_and_n_hosts(tmp_path, capsys, monkeypatch):
     torch_main(argv)
     got = capsys.readouterr().out
     assert got.split("\n", 1)[1] == want.split("\n", 1)[1]
-    with pytest.raises(NotImplementedError, match="n-hosts"):
+    monkeypatch.setenv("SCTAG_SYNC_TIMEOUT", "0.2")
+    with pytest.raises(TimeoutError, match="red00001sum.h1"):
         torch_main([*argv, "-o", str(tmp_path / "o.tsv.gz"), "--n-hosts", "2"])
+    assert not (tmp_path / "o.tsv.gz").exists()

@@ -26,7 +26,8 @@ def test_module_list_holds_the_copies():
                  "stages.extract_lr_bc", "tools.roofline", "core.cutoff", "io.bam",
                  "ops.exact_lookup", "ops.topk_count", "pipeline.checkpoint",
                  "pipeline.runner", "stages.extract_sr_bc",
-                 "stages.extract_sr_bc_from_lr"):
+                 "stages.extract_sr_bc_from_lr", "io.sharding", "parallel",
+                 "parallel.mesh", "parallel.multihost", "entry"):
         assert f"sctagger_tpu_torch.{name}" in MODULES
 
 
@@ -98,14 +99,19 @@ def test_import_scan_catches_the_jax_package(src, pkg, want):
     assert bool(got) == bool(want)
 
 
-def test_non_ported_subcommand_exits_nonzero(tmp_path):
-    """Every subcommand is ported; what is not (--n-hosts > 1, ROADMAP Queue
-    A item 6) raises in each of the four."""
+def test_non_ported_subcommand_exits_nonzero(tmp_path, monkeypatch):
+    """Every subcommand is ported, --n-hosts > 1 included: with missing
+    inputs each of the four raises FileNotFoundError (the reference's
+    surface), as the JAX CLI does, and none NotImplementedError."""
+    from sctagger_tpu.cli import main as jax_main
     from sctagger_tpu_torch.cli import main
 
+    monkeypatch.setenv("SCTAG_DEVICE", "cpu")
+    monkeypatch.chdir(tmp_path)
     out = str(tmp_path / "o.tsv.gz")
     for argv in (["extract_lr_bc", "-r", "a.fq"], ["extract_sr_bc", "-i", "in.bam"],
                  ["extract_sr_bc_from_lr", "-i", "lr.tsv", "-wl", "wl.txt"],
                  ["match_trie", "-lr", "lr.tsv", "-sr", "sr.tsv"]):
-        with pytest.raises(NotImplementedError, match="n-hosts"):
-            main([*argv, "-o", out, "--n-hosts", "2"])
+        for m in (main, jax_main):
+            with pytest.raises(FileNotFoundError):
+                m([*argv, "-o", out, "--n-hosts", "2"])

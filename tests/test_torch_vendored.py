@@ -38,6 +38,7 @@ VERBATIM = [
     "native/adapter_d2.cpp", "native/adapter_verify.h",
     "core/cutoff.py", "io/bam.py", "pipeline/__init__.py", "pipeline/checkpoint.py",
     "native/bam_reader.cpp", "native/hash_table.cpp", "native/exact_probe.cpp",
+    "io/sharding.py",
 ]
 
 
