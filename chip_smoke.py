@@ -25,8 +25,12 @@ Phases, each fatal on failure:
        reads of 1,000-3,000 bp (the last two timed);
      - its MASK entry (adapter_mask) against adapter_mask_ref, exact d and
        mask bits, at m in {22, 31, 32}, with junk, > 4 and > 64 ends, empty
-       and shorter-than-m reads and three reads of >= 70,000 bp; then 128
-       junk reads of 1,000-3,000 bp (timed);
+       and shorter-than-m reads and three reads of >= 70,000 bp, at the
+       default segment count and at each of 1, 2, 4, 8, 16 and 32 segments
+       per read; then length-sorted batches of 102 (the main path's MASK
+       launch) and 4,096 (the largest launch) junk reads of 1,000-3,000 bp,
+       and one empty read (the launch floor), timed per call and with the
+       launches queued (tools.roofline.measure_mask);
      - the min, best-matrix and ties epilogues of the match kernel
        (match_min / match_best / match_ties, K4 / K5 / K3) against their
        plain versions, exact equality, at m in {16, 31, 32}, uniform and
@@ -34,7 +38,9 @@ Phases, each fatal on failure:
        one-tile case that does not, ties at K1's minima and at m; then the
        16,384-read x 50,000-pattern chunk (timed);
      - the int32 microkernel (myers_micro, K7) against micro_ref at chains
-       1/2/4/8 (timed at chains 4).
+       1/2/4/8, small and at tools.roofline's ceiling shape (MICRO_ITERS
+       iterations, grid MICRO_GRID; the plain version timed there; the
+       kernel is timed by tools.roofline).
   4. main paths, each with every launch count set to 0 just before it:
      - `match_trie` through sctagger_tpu_torch.cli.main on the flagship
        workload (bench.make_inputs: N segments x 25,000 barcodes, mr=2);
@@ -47,8 +53,10 @@ Phases, each fatal on failure:
      - `tools.profile_match` (K4 pass 1 at 131,072 segments, K5 + top-k
        and K3 pass 2);
      - `tools.roofline` (K7 ceiling at chains 1/2/4/8, K1 and K6 at 16,384
-       and 131,072 reads read as shares of it), whose JSON is printed on a
-       [roofline] line; its ceiling sets every kernel's bound_ms.
+       and 131,072 reads read as shares of it; the SASS loop of every kernel;
+       the SM clocks and the card's issue rate), whose JSON is printed on a
+       [roofline] line; its ceiling sets every kernel's bound_ms, its issue
+       rate and SASS counts every issue_bound_ms.
      check_device_paths (phase 3) also requires that the > 8-ties escalation
      at bl 16 launched match_best (K5) on the card; the `match_trie` run
      logs the reads it escalates and K5's launches there.
@@ -96,9 +104,16 @@ Phases, each fatal on failure:
         chunk at data 2 and at model 2, and K6 SLOTS on 131,072 reads at
         data 2, each equal to its one-device launch (timed).
 
-The line before the last is a JSON object with the kernel table; the last
-line is {"ok": true, "device": {...}}. Exits nonzero, printing no result,
-without CUDA or outside a checkout of the repository.
+The kernels line holds, for every kernel, its time per call (``ms``,
+between CUDA events) and two bounds: bound_ms, the larger of its bytes over
+3.35 TB/s and its source ops over the measured ceiling, and issue_bound_ms,
+the larger of its bytes and the instructions its function needs (per cell
+the fewer of its source ops and its compiled loop's hot path) over the
+issue rate at clocks.max.sm; a share (bound over time) above 105% in either
+fails the run, as a wrong count. The line before the last is the
+card's name and power limit; the last line is {"ok": true, "device":
+{...}}. Exits nonzero, printing no result, without CUDA or outside a
+checkout of the repository.
 """
 
 from __future__ import annotations
@@ -143,6 +158,8 @@ SR_ALNS = 2_000_000  # the repo's `sr` shape
 ALT_ROWS, ALT_WHITELIST, ALT_HEAD = 1_000_000, 3_000_000, 50_000  # `alt_3m`
 MATCH_CKPT_BATCH = 262_144
 RUNNER_READS, RUNNER_WHITELIST = 5000, 1000
+MASK_NSEGS = (1, 2, 4, 8, 16, 32)
+SHARE_LIMIT = 1.05  # a share above this means a wrong count
 REPLACES = (
     "sctagger_tpu/ops/match_pallas.py:207 (_match_full_kernel via "
     "match_full_tpu :357) + :260 (_match_full_dynls_kernel via "
@@ -300,11 +317,16 @@ def check_kernels() -> dict:
         f"patterns={ctx.pat_codes.shape[0]} ls=24 max_abs_err={err}")
     if err != 0:
         raise AssertionError("kernel disagrees with its plain version (flagship)")
+    # K2 on the same chunk: every block's sweep bound is its 24 positions
+    ml = torch.full((1, seg.shape[1] // mc.DEF_BR), 24, dtype=torch.int32, device=dev)
+    if not torch.equal(mc.match_full_dynls(seg, peq, ml, 16), got):
+        raise AssertionError("K2 (maxlens 24) differs from K1 on the flagship chunk")
     ms = cuda_ms(lambda: mc.match_full(seg, peq, 16), reps=10)
+    dynls_ms = cuda_ms(lambda: mc.match_full_dynls(seg, peq, ml, 16), reps=10)
     plain_ms = cuda_ms(lambda: mc.match_full_ref(seg, peq, 16), reps=2)
-    log(f"[kernel] flagship chunk: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-        f"({gpu_line()})")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+    log(f"[kernel] flagship chunk: kernel {ms:.3f} ms (K2, maxlens 24: "
+        f"{dynls_ms:.3f} ms), plain {plain_ms:.3f} ms ({gpu_line()})")
+    return {"max_abs_err": worst, "ms": ms, "dynls_ms": dynls_ms, "plain_ms": plain_ms,
             "cells": seg.shape[1] * peq.shape[0] * 24,
             "bytes": _nbytes(seg, peq, got)}
 
@@ -426,34 +448,30 @@ def check_match_variants() -> dict:
 
 
 def check_micro() -> dict:
-    """Phase 3d: K7 == micro_ref on the card at every chain count (bp 8 x
-    br 128, 16 iterations, grid 2), then both timed at chains 4 on a
-    64 x 1,024 block, 64 iterations, one copy."""
-    import torch
-
+    """Phase 3d: K7 == micro_ref on the card at every chain count, on a
+    bp 8 x br 128 block (16 iterations, grid 2) and at tools.roofline's
+    ceiling shape (bp max(8, 256 // chains) x 1,024, MICRO_ITERS iterations,
+    grid MICRO_GRID), where the plain version is timed once per chain count
+    (tools.roofline times the kernel there)."""
     from sctagger_tpu_torch.ops import micro_cuda as mic
-    from sctagger_tpu_torch.tools import cuda_ms, gpu_line
+    from sctagger_tpu_torch.tools import gpu_line, roofline
 
-    dev = torch.device("cuda")
     worst = 0
+    plain = {}
     for chains in mic.CHAINS:
-        x = mic.micro_input(8, 128).to(dev)
-        err = _err(mic.micro(x, 16, chains, grid=2), mic.micro_ref(x, 16, chains))
-        worst = max(worst, err)
-        log(f"[k7] chains={chains} bp=8 br=128 iters=16 grid=2 max_abs_err={err}")
-        if err:
-            raise AssertionError(f"K7 disagrees with micro_ref (chains={chains})")
-    x = mic.micro_input(64, 1024).to(dev)
-    ref, plain_ms = _timed_once(lambda: mic.micro_ref(x, 64, 4))
-    err = _err(mic.micro(x, 64, 4), ref)
-    worst = max(worst, err)
-    ms = cuda_ms(lambda: mic.micro(x, 64, 4), reps=20)
-    log(f"[k7] chains=4 64x1024 iters=64: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, max_abs_err={err} ({gpu_line()})")
-    if err:
-        raise AssertionError("K7 disagrees with micro_ref (timed block)")
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "ops": mic.micro_ops(x.numel(), 64, 4, 1), "bytes": 2 * x.numel() * 4}
+        for bp, br, iters, grid in ((8, 128, 16, 2),
+                                    (max(8, roofline.MICRO_BP // chains), roofline.MICRO_BR,
+                                     roofline.MICRO_ITERS, roofline.MICRO_GRID)):
+            x = mic.micro_input(bp, br).to("cuda")
+            ref, plain_ms = _timed_once(lambda: mic.micro_ref(x, iters, chains))
+            err = _err(mic.micro(x, iters, chains, grid=grid), ref)
+            worst = max(worst, err)
+            log(f"[k7] chains={chains} bp={bp} br={br} iters={iters} grid={grid} "
+                f"max_abs_err={err}; plain {plain_ms:.3f} ms ({gpu_line()})")
+            if err:
+                raise AssertionError(f"K7 disagrees with micro_ref (chains={chains})")
+        plain[chains] = plain_ms
+    return {"max_abs_err": worst, "plain_ms": plain}
 
 
 def _write_inputs(tmp: pathlib.Path, segs, barcodes):
@@ -653,77 +671,52 @@ def check_adapter_kernel() -> dict:
     return {"max_abs_err": worst, **out[16_384], "main_chunk": out[131_072]}
 
 
-def _mask_rows(reads, adapter: str):
-    """Byte codes of ``reads`` on the card, as the mask fallback builds them:
-    (codes, lens, peq, m)."""
-    import torch
-
-    from sctagger_tpu_torch.core.packing import encode_rows, encode_str
-    from sctagger_tpu_torch.ops import adapter_cuda as ac
-    from sctagger_tpu_torch.ops.myers import build_peq_multi
-
-    L = -(-max(1, max(map(len, reads))) // 32) * 32
-    codes, lens = encode_rows(reads, np.arange(len(reads)), pad_to=L)
-    peq = ac.prep_peq(build_peq_multi(np.stack(
-        [encode_str(adapter), encode_str(_rev_compl(adapter))])))
-    dev = torch.device("cuda")
-    return (torch.from_numpy(codes).to(dev), torch.from_numpy(lens).to(dev), peq,
-            len(adapter))
-
-
-def _junk(rng, reads, p: float = 0.02):
-    """Each read with a few of its chars turned to N (junk) at random."""
-    out = []
-    for r in reads:
-        b = bytearray(r.encode())
-        for i in np.flatnonzero(rng.random(len(b)) < p):
-            b[i] = ord("N")
-        out.append(b.decode())
-    return out
-
-
 def check_adapter_mask() -> dict:
     """Phase 3b': K6's MASK entry == adapter_mask_ref (the JAX mask path's
     hw_block + a bit pack) on the card, exact d and mask bits, at m 22/31/32
     with junk, > 4 and > 64 ends, empty and < m reads and three reads of
-    >= 70,000 bp; then timed on 128 junk reads of 1,000-3,000 bp."""
+    >= 70,000 bp, at the default segment count and at every forced one;
+    then timed by tools.roofline.measure_mask on 102 and 4,096 junk reads
+    of 1,000-3,000 bp and on one empty read (the launch floor)."""
     import torch
 
     from sctagger_tpu_torch.ops import adapter_cuda as ac
-    from sctagger_tpu_torch.tools import cuda_ms, gpu_line
+    from sctagger_tpu_torch.tools import gpu_line, roofline
 
     rng = np.random.default_rng(5)
+    dev = torch.device("cuda")
     adapters = {22: ADAPTER, 31: ADAPTER + "AGTCAGGTA", 32: ADAPTER + "AGTCAGGTAC"}
     worst = 0
     for m, a in adapters.items():
-        reads = _junk(rng, _adapter_reads(rng, a, 200, 0, 900))
+        reads = roofline.add_junk(rng, _adapter_reads(rng, a, 200, 0, 900))
         reads += ["", "", "N" * 40, a[: m // 2], _dna(rng, m - 1),
                   "CC" + (a + "TTT") * 6, "G" + (a + "A") * 70 + "N" + a,
                   "A" * 500, a[:5] + "N" + a[6:]]
         if m == 22:
-            reads += _junk(rng, _adapter_reads(rng, a, 3, 70_000, 72_000), 0.001)
-        args = _mask_rows(reads, a)
-        got, ref = ac.adapter_mask(*args), ac.adapter_mask_ref(*args)
+            reads += roofline.add_junk(rng, _adapter_reads(rng, a, 3, 70_000, 72_000), 0.001)
+        args = roofline.mask_rows(reads, dev, a)
+        ref = ac.adapter_mask_ref(*args)
+        runs = {"default": ac.adapter_mask(*args),
+                **{f"nseg={n}": ac.adapter_mask(*args, nseg=n) for n in MASK_NSEGS}}
         torch.cuda.synchronize()
-        errs = [_err(g, r) for g, r in zip(got, ref)]
-        worst = max(worst, *errs)
+        errs = {k: max(_err(g, r) for g, r in zip(v, ref)) for k, v in runs.items()}
+        worst = max(worst, *errs.values())
         ends = np.array([ac.mask_ends(w).size for w in ref[1][:, 0].cpu().numpy()])
         log(f"[mask] m={m}: reads={len(reads)} with junk={sum('N' in r for r in reads)} "
             f"reads>4 fwd ends={int((ends > 4).sum())} >64={int((ends > 64).sum())} "
-            f"longest={max(map(len, reads))} max_abs_err d={errs[0]} bits={errs[1]}")
-        if any(errs) or not (ends > 64).any():
+            f"longest={max(map(len, reads))} default nseg="
+            f"{ac.mask_nseg_for(*args[0].shape)} max_abs_err={errs}")
+        if any(errs.values()) or not (ends > 64).any():
             raise AssertionError(f"K6 MASK disagrees with adapter_mask_ref (m={m})")
-    args = _mask_rows(_junk(rng, _adapter_reads(rng, ADAPTER, 128, 1000, 3000)), ADAPTER)
-    ms = cuda_ms(lambda: ac.adapter_mask(*args), reps=20)
-    plain_ms = cuda_ms(lambda: ac.adapter_mask_ref(*args), reps=1)
-    errs = [_err(g, r) for g, r in zip(ac.adapter_mask(*args), ac.adapter_mask_ref(*args))]
-    log(f"[mask] 128 junk reads x 1,000-3,000 bp: kernel {ms:.3f} ms, plain "
-        f"{plain_ms:.3f} ms, max_abs_err={max(errs)} ({gpu_line()})")
-    if any(errs):
-        raise AssertionError("K6 MASK disagrees with adapter_mask_ref (timed batch)")
-    d, bits = ac.adapter_mask(*args)
-    return {"max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
-            "chars": int(args[1].sum()), "bytes": _nbytes(args[0], args[1], d, bits)}
+    timed = roofline.measure_mask(dev, sweep=True)
+    for tag, t in timed.items():
+        by_nseg = {n: round(ms, 5) for n, ms in t.get("device_ms_by_nseg", {}).items()}
+        log(f"[mask] {tag}: {t['reads']} reads, {t['chars']} chars (nseg {t['nseg']}): "
+            f"kernel {t['ms']:.4f} ms a call, {t['device_ms']:.4f} ms on the card with "
+            f"the launches queued, plain {t['plain_ms']:.3f} ms, max_abs_err="
+            f"{t['max_abs_err']}; device ms by forced nseg {by_nseg} ({gpu_line()})")
+    return {"max_abs_err": worst, **timed["main"], "full": timed["full"],
+            "floor": timed["floor"]}
 
 
 def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
@@ -895,8 +888,15 @@ def roofline_path() -> dict:
     log(f"[roofline] {json.dumps(res)}")
     ceil = res["ceiling"]["ops_per_s"]
     shares = {k: v["share_of_ceiling"] for k, v in res["kernels"].items()}
+    issue = res["issue"]
+    k7 = {c: v.get("issue_share") for c, v in res["ceiling"]["by_chains"].items()}
     log(f"[roofline] int32 ceiling {ceil / 1e12:.3f} T source ops/s (best of "
         f"chains 1/2/4/8); shares of it: {shares}; K7 launches {launches}")
+    log(f"[roofline] issue rate {issue['lanes_per_s'] / 1e12:.3f} T lane-instructions/s "
+        f"({issue['sms']} SMs x 4 x 32 x {issue['max_sm_mhz']} MHz clocks.max.sm; "
+        f"clocks.sm under K7 {issue['sm_mhz_under_k7']} MHz); K7's SASS rate as a share "
+        f"of it by chains {k7}; K1/K6 issue shares "
+        f"{ {k: v.get('issue_share') for k, v in res['kernels'].items()} }")
     if launches == 0 or not math.isfinite(ceil) or ceil <= 0 or not all(
             math.isfinite(s) and s > 0 for s in shares.values()):
         raise AssertionError("roofline gave no ceiling or no shares")
@@ -1344,6 +1344,100 @@ def grid_path() -> dict:
     return res
 
 
+def kernel_rows(roof: dict, timing, k6, k6_mask, variants, k7, match_launches,
+                res_lr, variant_launches, micro_launches) -> list[dict]:
+    """The kernels line: one row per kernel with its launches on the main
+    path, the checks' numbers (``ms`` per call between CUDA events, every
+    row alike) and two bounds of the timed launch, each the larger of its
+    bytes over the HBM rate and its work over a rate: bound_ms, source ops
+    over this run's measured int32 ceiling; and issue_bound_ms, the
+    instructions the function needs (roofline.issue_per_cell: the fewer of
+    its source ops and its compiled loop's hot path, per cell, times the
+    cells) over the card's issue rate at clocks.max.sm. No single PyTorch
+    call computes any of these functions (library_ms null). Fails when a
+    share (bound / ms) passes SHARE_LIMIT."""
+    from sctagger_tpu_torch.ops import micro_cuda as mic
+    from sctagger_tpu_torch.tools import roofline
+
+    sass = roof["sass_loops"]
+    if not sass or any(v is None for v in sass.values()):
+        raise AssertionError(f"no SASS loop count for some kernel: {sass}")
+    ceiling, iss = roof["ceiling"]["ops_per_s"], roof["issue"]
+
+    def bounds(ms, ops, instr, nbytes) -> dict:
+        by_bytes = nbytes / roofline.HBM_BYTES_PER_S
+        by_issue = 1e-3 * roofline.issue_bound_ms(instr, iss["sms"], iss["max_sm_mhz"])
+        b, i = max(ops / ceiling, by_bytes), max(by_issue, by_bytes)
+        return {"bound_ms": 1e3 * b, "bound_by": "operations" if b > by_bytes else "bytes",
+                "issue_bound_ms": 1e3 * i,
+                "issue_bound_by": "operations" if i > by_bytes else "bytes",
+                "share": 1e3 * b / ms, "issue_share": 1e3 * i / ms}
+
+    def counts(name, ops_per_cell) -> dict:
+        return {"ops_per_cell": ops_per_cell,
+                "issue_per_cell": roofline.issue_per_cell(sass, name, ops_per_cell),
+                "sass_per_cell": roofline.sass_per_cell(sass, name),
+                **({"sass_hot_per_cell": sass[f"{name}_hot"] / roofline.CELLS_PER_TRIP[name]}
+                   if f"{name}_hot" in sass else {})}
+
+    def row(name, source, replaces, n, stats, cells, ops_per_cell, **extra):
+        c = counts(name, ops_per_cell)
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": n, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
+                "plain_ms": stats["plain_ms"],
+                **bounds(stats["ms"], cells * ops_per_cell, cells * c["issue_per_cell"],
+                         stats["bytes"]),
+                "library_ms": None, **c, **extra}
+
+    match_ops = roofline.MATCH_OPS_PER_CELL
+    mask_ops = roofline.MASK_OPS_PER_CHAR_STRAND
+    mask_issue = roofline.issue_per_cell(sass, "adapter_mask", mask_ops)
+    full = k6_mask["full"]
+    ceil = roof["ceiling"]
+    best = ceil["best_chains"]
+    k7_at = ceil["by_chains"][best]
+    k7_stats = {"max_abs_err": k7["max_abs_err"], "ms": k7_at["ms"],
+                "plain_ms": k7["plain_ms"][best], "bytes": 2 * 4 * k7_at["elements"]}
+    k7_chain_iters = k7_at["elements"] * ceil["iters"] * ceil["grid"] * best
+    k7_issue = min(mic.OPS_PER_ITER, sass[f"micro_{best}"] / best)
+    dynls_issue = roofline.issue_per_cell(sass, "match_full_dynls", match_ops)
+    rows = [
+        row("match_full", KERNEL_SRC, REPLACES, match_launches, timing, timing["cells"],
+            match_ops, dynls={"ms": timing["dynls_ms"], "issue_per_cell": dynls_issue,
+                              **bounds(timing["dynls_ms"], timing["cells"] * match_ops,
+                                       timing["cells"] * dynls_issue, timing["bytes"])}),
+        row("adapter_scan", ADAPTER_SRC, ADAPTER_REPLACES, res_lr["launches"], k6,
+            2 * k6["chars"], roofline.ADAPTER_OPS_PER_CHAR_STRAND),
+        row("adapter_mask", ADAPTER_SRC, ADAPTER_REPLACES, res_lr["mask_launches"],
+            k6_mask, 2 * k6_mask["chars"], mask_ops, reads=k6_mask["reads"],
+            nseg=k6_mask["nseg"], device_ms=k6_mask["device_ms"],
+            floor_ms=k6_mask["floor"]["ms"], floor_device_ms=k6_mask["floor"]["device_ms"],
+            at_4096={"reads": full["reads"], "nseg": full["nseg"], "ms": full["ms"],
+                     "device_ms": full["device_ms"], "plain_ms": full["plain_ms"],
+                     **bounds(full["ms"], 2 * full["chars"] * mask_ops,
+                              2 * full["chars"] * mask_issue, full["bytes"])}),
+    ] + [row(name, KERNEL_SRC, VARIANT_REPLACES[name], variant_launches[name],
+             variants[name], variants[name]["cells"], match_ops)
+         for name in VARIANT_REPLACES] + [
+        {"name": "myers_micro", "route": "cuda", "source": MICRO_SRC,
+         "replaces": MICRO_REPLACES, "launches": micro_launches,
+         "max_abs_err": k7_stats["max_abs_err"], "ms": k7_stats["ms"],
+         "plain_ms": k7_stats["plain_ms"],
+         **bounds(k7_stats["ms"], k7_chain_iters * mic.OPS_PER_ITER,
+                  k7_chain_iters * k7_issue, k7_stats["bytes"]),
+         "library_ms": None, "chains": best, "ops_per_chain_iter": mic.OPS_PER_ITER,
+         "issue_per_chain_iter": k7_issue,
+         "sass_per_chain_iter": sass[f"micro_{best}"] / best},
+    ]
+    shapes = rows + [{"name": "match_full_dynls", **rows[0]["dynls"]},
+                     {"name": "adapter_mask@4096", **rows[2]["at_4096"]}]
+    over = [(r["name"], k, r[k]) for r in shapes for k in ("share", "issue_share")
+            if r[k] > SHARE_LIMIT]
+    if over:
+        raise AssertionError(f"a share above {SHARE_LIMIT:.0%} (a wrong count): {over}")
+    return rows
+
+
 def main(argv=None) -> int:
     t_start = time.perf_counter()
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1415,33 +1509,10 @@ def main(argv=None) -> int:
     roof = roofline_path()
     launches = {"match_min": k4_entry, "match_best": k5_escalation,
                 "match_ties": prof["match_ties"]}
-    ceiling = roof["roofline"]["ceiling"]["ops_per_s"]
-
-    def row(name, source, replaces, n, stats, ops):
-        """One kernel's entry: its launches on the main path, the checks'
-        numbers, and the bound of the timed launch: the larger of its bytes
-        over the HBM rate and its source ops over this run's measured int32
-        ceiling (no single PyTorch call computes any of these functions)."""
-        by_ops, by_bytes = ops / ceiling, stats["bytes"] / roofline.HBM_BYTES_PER_S
-        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": n, "max_abs_err": stats["max_abs_err"], "ms": stats["ms"],
-                "plain_ms": stats["plain_ms"], "bound_ms": 1e3 * max(by_ops, by_bytes),
-                "bound_by": "operations" if by_ops >= by_bytes else "bytes",
-                "library_ms": None}
-
-    match_ops = roofline.MATCH_OPS_PER_CELL
-    kernels = [
-        row("match_full", KERNEL_SRC, REPLACES, res["launches"], timing,
-            timing["cells"] * match_ops),
-        row("adapter_scan", ADAPTER_SRC, ADAPTER_REPLACES, res_lr["launches"], k6,
-            2 * k6["chars"] * roofline.ADAPTER_OPS_PER_CHAR_STRAND),
-        row("adapter_mask", ADAPTER_SRC, ADAPTER_REPLACES, res_lr["mask_launches"],
-            k6_mask, 2 * k6_mask["chars"] * roofline.MASK_OPS_PER_CHAR_STRAND),
-    ] + [row(name, KERNEL_SRC, VARIANT_REPLACES[name], launches[name], variants[name],
-             variants[name]["cells"] * match_ops) for name in VARIANT_REPLACES] + [
-        row("myers_micro", MICRO_SRC, MICRO_REPLACES, roof["launches"], k7, k7["ops"]),
-    ]
+    kernels = kernel_rows(roof["roofline"], timing, k6, k6_mask, variants, k7,
+                          res["launches"], res_lr, launches, roof["launches"])
     main_chunk = k6["main_chunk"]
+    ceiling = roof["roofline"]["ceiling"]["ops_per_s"]
     log(f"[k6] SLOTS at 131,072 reads: {main_chunk['ms']:.3f} ms, bound "
         f"{1e3 * 2 * main_chunk['chars'] * roofline.ADAPTER_OPS_PER_CHAR_STRAND / ceiling:.3f}"
         f" ms ({gpu})")

@@ -44,13 +44,37 @@
 // the min; counts added at a common min; the first SLOTS_K ends in position
 // order. Reads are length-sorted, so the lanes of a warp stop together.
 //
-// MASK: one block per read, one segment per thread (32-char multiples, so
-// each thread owns whole mask words). Pass 1 takes each segment's min and a
-// block-wide min; pass 2 sweeps again and sets the bits at that min.
+// MASK: one pass, one strand a thread. A read is cut into nseg (a power of
+// two <= 32, chosen per launch) segments of round_up(cdiv(len, nseg), 32)
+// chars, so a segment owns whole mask words; a group of nseg adjacent lanes
+// takes one strand of one read, lane k segment k, and the read's two groups
+// sit side by side. A thread thus carries one Myers dependency chain: the
+// card's in-order issue finds its parallelism across warps, which a thread
+// stepping both strands did not give it (ptxas ordered one strand's steps
+// before the other's). After the warm-up a thread keeps a running min d and
+// cur, the word of its last drop. Each word of 32 chars is stepped with its
+// scores kept in registers; its min wm and its positions at wm follow (a
+// min and a compare per char, no branch), then d = min(d, wm) and the word
+// is stored at once: its positions at wm if wm == d, else 0. The words
+// stored before cur may hold positions of a higher min. The group's min D
+// comes from xor shuffles (no atomics). Then each lane zeroes what is not
+// at D: the words before cur when its d == D, all its words when d > D
+// (the segment holds no position at D). This is exact: a segment whose own
+// min is D holds exactly the read's argmin positions in its span. Every
+// word of the output row is written (past a read's end: zeros), so the
+// caller need not clear it. Codes are read 16 bytes a load (uint4), the
+// next word's loads issued a word ahead; the Eq comes from a table in
+// shared memory indexed by strand and byte code (zero from code 4 on), one
+// load a char, so junk needs no test.
 //
 // Bound, on this card: int32 instruction issue, not bytes. SLOTS reads 1/4
 // byte of text per char against two Myers steps (~30 integer instructions);
-// MASK reads one byte per char and sweeps twice.
+// MASK reads one byte per char against the same steps and writes 1/4 byte of
+// mask bits. A segment of s chars steps its warm-up (2m to 2m + 15 chars:
+// 48 at m = 22) and then its s chars: at m = 22 that is 1.19 steps per
+// needed step at s = 256, the segment length of a full 4,096-read launch of
+// 2 kbp reads, and a chain of 112 dependent steps at s = 64, the length at
+// ~100 such reads, which sets the time of so small a launch.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -60,7 +84,7 @@ namespace {
 constexpr int SLOTS_K = 4;
 constexpr int ROWS_PER_STRAND = 2 + SLOTS_K;
 constexpr int SLOTS_THREADS = 128;  // whole warps, so a group never splits
-constexpr int MASK_THREADS = 128;   // segments per MASK read, at most
+constexpr int MASK_THREADS = 128;   // whole warps, so a group never splits
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Peq {
@@ -96,7 +120,7 @@ struct Myers {
   }
 };
 
-// Both strands of one read; Eq per base held in registers.
+// Both strands of one read (SLOTS); Eq per base held in registers.
 struct Pair {
   Myers f, r;
   uint32_t fa, fc, fg, ft, ra, rc, rg, rt;
@@ -107,20 +131,9 @@ struct Pair {
     f.init(m);
     r.init(m);
   }
-  __device__ __forceinline__ void restart(int m) {
-    f.init(m);
-    r.init(m);
-  }
-  // code 0..3 (2-bit text)
   __device__ __forceinline__ void step(uint32_t code) {
     f.step(pick(fa, fc, fg, ft, code));
     r.step(pick(ra, rc, rg, rt, code));
-  }
-  // byte code; 4 and above match nothing
-  __device__ __forceinline__ void step_byte(uint32_t code) {
-    const bool ok = code < 4u;
-    f.step(ok ? pick(fa, fc, fg, ft, code) : 0u);
-    r.step(ok ? pick(ra, rc, rg, rt, code) : 0u);
   }
 };
 
@@ -271,58 +284,146 @@ adapter_slots(const uint8_t* __restrict__ text, int b, int row_bytes,
   }
 }
 
+// MASK running state of one strand over one segment: the min d so far and
+// cur, the word of its last drop.
+struct Run {
+  int d, cur;
+
+  __device__ __forceinline__ void init(int m, int word) {
+    d = m;
+    cur = word;
+  }
+  // Word `w` is finished: wm is its min score, bits its positions at wm.
+  // Returns the word to store: bits if wm is the running min, else 0.
+  __device__ __forceinline__ uint32_t word(int wm, uint32_t bits, int w) {
+    cur = wm < d ? w : cur;
+    d = min(d, wm);
+    return wm == d ? bits : 0u;
+  }
+};
+
+// The byte code of char q (0..15) of a 16-byte load.
+__device__ __forceinline__ uint32_t byte_of(const uint4& v, int q) {
+  const uint32_t x = q < 4 ? v.x : q < 8 ? v.y : q < 12 ? v.z : v.w;
+  return (x >> (8 * (q & 3))) & 0xffu;
+}
+
+// MASK warm-up over the 16 chars of one load: Myers only. eq[code] is the
+// strand's Eq (zero for every code >= 4).
+__device__ __forceinline__ void mask_warm(const uint4& v, const uint32_t* eq, Myers& s) {
+#pragma unroll
+  for (int q = 0; q < 16; ++q) s.step(eq[byte_of(v, q)]);
+}
+
+// The min score over 16 chars and the bits (0..15) of the chars at it.
+struct Half {
+  int best;
+  uint32_t bits;
+};
+
+// MASK over the 16 chars of one load at positions j .. j + 15 (when CHECK,
+// only those below hi; at least position j is). The scores are kept, so
+// the bookkeeping is a min per char and one compare per char after it.
+template <bool CHECK>
+__device__ __forceinline__ Half mask_16(const uint4& v, int j, int hi, const uint32_t* eq,
+                                        int m, Myers& s) {
+  int sc[16];
+  Half h;
+  h.best = m;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) {
+    if (!CHECK || j + q < hi) {
+      s.step(eq[byte_of(v, q)]);
+      sc[q] = s.score;
+    } else {  // past the segment: above every score
+      sc[q] = m + 1;
+    }
+    h.best = min(h.best, sc[q]);
+  }
+  h.bits = 0u;
+#pragma unroll
+  for (int q = 0; q < 16; ++q) h.bits |= sc[q] == h.best ? 1u << q : 0u;
+  return h;
+}
+
+// The word of two halves: its min and its positions at it.
+__device__ __forceinline__ uint32_t join(const Half& a, const Half& b, int& wm) {
+  wm = min(a.best, b.best);
+  return (a.best == wm ? a.bits : 0u) | (b.best == wm ? b.bits << 16 : 0u);
+}
+
+// Stores 0 over words [w0, w1) of a mask row.
+__device__ __forceinline__ void clear_words(uint32_t* row, int w0, int w1) {
+  for (int q = w0; q < w1; ++q) row[q] = 0u;
+}
+
 __global__ void __launch_bounds__(MASK_THREADS)
 adapter_mask(const uint8_t* __restrict__ codes, int b, int row_len,
-             const int32_t* __restrict__ lens, Peq peq, int m,
+             const int32_t* __restrict__ lens, Peq peq, int m, int log_nseg,
              int32_t* __restrict__ d_out, uint32_t* __restrict__ bits) {
-  __shared__ int dmin[2];
-  const int r = blockIdx.x;
-  const int len = min(lens[r], row_len);
-  const int seg = max(32, ((len + MASK_THREADS - 1) / MASK_THREADS + 31) & ~31);
-  const int lo = threadIdx.x * seg;
-  const int hi = min(lo + seg, len);
-  const int w0 = max(0, lo - 2 * m);
-  const uint8_t* row = codes + (size_t)r * row_len;
-  if (threadIdx.x == 0) dmin[0] = dmin[1] = m;
+  __shared__ uint32_t eq[2][256];  // Eq by strand and byte code
+  for (int i = threadIdx.x; i < 512; i += MASK_THREADS)
+    eq[i >> 8][i & 255] = (i & 255) < 4 ? peq.eq[i >> 8][i & 255] : 0u;
   __syncthreads();
 
-  Pair s;
-  s.init(peq, m);
-  if (lo < hi) {  // pass 1: the segment's min
-    int fmin = m, rmin = m;
-    for (int j = w0; j < lo; ++j) s.step_byte(row[j]);
-    for (int j = lo; j < hi; ++j) {
-      s.step_byte(row[j]);
-      fmin = min(fmin, s.f.score);
-      rmin = min(rmin, s.r.score);
-    }
-    atomicMin(&dmin[0], fmin);
-    atomicMin(&dmin[1], rmin);
-  }
-  __syncthreads();
-  const int fd = dmin[0], rd = dmin[1];
-  if (threadIdx.x == 0) {
-    d_out[r] = fd;
-    d_out[(size_t)b + r] = rd;
-  }
-  if (lo < hi) {  // pass 2: the positions at the min, one word per 32 chars
-    const int words = row_len >> 5;
-    uint32_t* fbits = bits + (size_t)r * 2 * words;
-    uint32_t* rbits = fbits + words;
-    s.restart(m);
-    for (int j = w0; j < lo; ++j) s.step_byte(row[j]);
-    uint32_t fw = 0u, rw = 0u;
-    for (int j = lo; j < hi; ++j) {
-      s.step_byte(row[j]);
-      fw |= (uint32_t)(s.f.score == fd) << (j & 31);
-      rw |= (uint32_t)(s.r.score == rd) << (j & 31);
-      if ((j & 31) == 31 || j == hi - 1) {
-        fbits[j >> 5] = fw;
-        rbits[j >> 5] = rw;
-        fw = rw = 0u;
+  // thread g: segment k of strand p of read r
+  const int g = blockIdx.x * MASK_THREADS + threadIdx.x;
+  const int nseg = 1 << log_nseg;
+  const int k = g & (nseg - 1);
+  const int p = (g >> log_nseg) & 1;
+  const int r = g >> (log_nseg + 1);
+  const int len = r < b ? min(lens[r], row_len) : 0;  // never past the row
+  const int seg = ((len + nseg - 1) / nseg + 31) & ~31;
+  const int lo = k * seg;
+  const int hi = min(lo + seg, len);
+  const int words = row_len >> 5;
+  uint32_t* out = bits + ((size_t)r * 2 + p) * words;  // used only when r < b
+
+  Run run;
+  run.init(m, lo >> 5);
+  if (lo < hi) {
+    const uint4* row = reinterpret_cast<const uint4*>(codes + (size_t)r * row_len);
+    // the first word's loads and the warm-up's (w0 <= lo - 2m, lo - w0 <=
+    // 64: at most 4 loads) go out together
+    uint4 a0 = __ldg(row + (lo >> 4)), a1 = __ldg(row + (lo >> 4) + 1);
+    const int w0 = max(0, (lo - 2 * m) & ~15);
+    uint4 warm[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (w0 + 16 * i < lo) warm[i] = __ldg(row + (w0 >> 4) + i);
+    Myers s;
+    s.init(m);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (w0 + 16 * i < lo) mask_warm(warm[i], eq[p], s);
+    int wm, j = lo;
+#pragma unroll 1
+    for (; j + 32 <= hi; j += 32) {  // one mask word a trip
+      const uint4 c0 = a0, c1 = a1;
+      if (j + 32 < hi) {  // the next word's loads (j + 64 <= row_len)
+        a0 = __ldg(row + (j >> 4) + 2);
+        a1 = __ldg(row + (j >> 4) + 3);
       }
+      const Half h0 = mask_16<false>(c0, j, hi, eq[p], m, s);
+      const Half h1 = mask_16<false>(c1, j + 16, hi, eq[p], m, s);
+      const uint32_t w = join(h0, h1, wm);
+      out[j >> 5] = run.word(wm, w, j >> 5);
+    }
+    if (j < hi) {  // the ragged last word (both loads lie in the row)
+      const Half h0 = mask_16<true>(a0, j, hi, eq[p], m, s);
+      const Half h1 = mask_16<true>(a1, j + 16, hi, eq[p], m, s);
+      const uint32_t w = join(h0, h1, wm);  // h1 may lie past hi: min m, no bits
+      out[j >> 5] = run.word(wm, w, j >> 5);
     }
   }
+  // the read's min on this strand: every lane of the group gets it
+  int d = run.d;
+  for (int off = 1; off < nseg; off <<= 1) d = min(d, __shfl_xor_sync(FULL, d, off));
+  if (r >= b) return;
+  if (k == 0) d_out[(size_t)p * b + r] = d;
+  if (lo < hi)  // keep only the words at the read's min
+    clear_words(out, lo >> 5, run.d == d ? run.cur : (hi + 31) >> 5);
+  for (int w = ((len + 31) >> 5) + k; w < words; w += nseg) out[w] = 0u;  // past the end
 }
 
 Peq left_aligned(const int32_t* peq_host, int m) {
@@ -357,19 +458,21 @@ int sctag_adapter_scan(const void* text, int b, int row_bytes, const void* lens,
   return static_cast<int>(cudaGetLastError());
 }
 
-// MASK. codes: (b, row_len) uint8 byte codes, row_len a multiple of 32.
-// lens: (b,) int32 (a longer one is cut to the row). peq_host and m as for
-// SLOTS. d_out: (2, b) int32. bits: (b, 2, row_len / 32) uint32, ZEROED by
-// the caller (words past a read's end are not written). Launches on
-// `stream`; returns cudaGetLastError().
+// MASK. codes: (b, row_len) uint8 byte codes, row_len a multiple of 32,
+// 16-byte aligned. lens: (b,) int32 (a longer one is cut to the row).
+// peq_host and m as for SLOTS. log_nseg in 0..5 (segments per read). d_out:
+// (2, b) int32. bits: (b, 2, row_len / 32) uint32, every word written.
+// Launches on `stream`; returns cudaGetLastError().
 int sctag_adapter_mask(const void* codes, int b, int row_len, const void* lens,
-                       const int32_t* peq_host, int m, void* d_out, void* bits,
-                       void* stream) {
+                       const int32_t* peq_host, int m, int log_nseg, void* d_out,
+                       void* bits, void* stream) {
   const Peq peq = left_aligned(peq_host, m);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  adapter_mask<<<b, MASK_THREADS, 0, s>>>(
+  const long long threads = (long long)b << (log_nseg + 1);  // x 2 strands
+  const int blocks = (int)((threads + MASK_THREADS - 1) / MASK_THREADS);
+  adapter_mask<<<blocks, MASK_THREADS, 0, s>>>(
       static_cast<const uint8_t*>(codes), b, row_len,
-      static_cast<const int32_t*>(lens), peq, m,
+      static_cast<const int32_t*>(lens), peq, m, log_nseg,
       static_cast<int32_t*>(d_out), static_cast<uint32_t*>(bits));
   return static_cast<int>(cudaGetLastError());
 }

@@ -63,6 +63,7 @@ _SIGNATURES = {
         "sctag_adapter_mask": [  # K6 MASK
             _vp, _i32, _i32,  # codes, b, row_len
             _vp, _vp, _i32,  # lens, peq (host), m
+            _i32,  # log_nseg
             _vp, _vp, _vp,  # d, bits, stream
         ],
     },

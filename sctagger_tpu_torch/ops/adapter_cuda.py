@@ -25,6 +25,10 @@ than SLOTS_K ends), m <= 32:
   out    d (2, B) int32, the min score per strand over j < len, clamped to
          m; bits (B, 2, L // 32) int32, bit j & 31 of word j >> 5 set where
          j < len and the score is d (``mask_ends`` reads them back)
+The kernel cuts each read into ``nseg`` segments of whole mask words and
+scans each strand of each once (a thread each), keeping a running (min,
+positions at the min); ``adapter_mask_segments_ref`` is the plain version
+of that cut, scan and merge.
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches the kernel on the current stream or raises. ``LAUNCHES`` and
@@ -50,6 +54,11 @@ TARGET_THREADS = 1 << 16  # SLOTS threads that fill the card: ~16 warps per SM
 #                           131,072; PERF.md section 5)
 MIN_SEG = 256  # SLOTS segment chars, at least: the warm-up (2m <= 64 chars)
 #                stays a small part of a segment
+MASK_MAX_NSEG = 32  # MASK segments per read, at most (one warp)
+MASK_TARGET_THREADS = 1 << 16  # MASK threads that fill the card
+MASK_MIN_SEG = MASK_WORD  # MASK segment chars, at least: few reads take short
+#                           segments, so the chain of warm-up + segment steps
+#                           that sets a small launch's time is short
 
 LAUNCHES = 0  # kernel launches by adapter_scan (SLOTS)
 MASK_LAUNCHES = 0  # kernel launches by adapter_mask (MASK)
@@ -146,14 +155,15 @@ def adapter_scan_ref(
 
 
 
-def segment_bounds(lens: torch.Tensor, nseg: int, m: int):
-    """The kernel's cut of each read into ``nseg`` segments: (lo, hi, w0),
+def segment_bounds(lens: torch.Tensor, nseg: int, m: int, unit: int = SEG_CHARS):
+    """The kernels' cut of each read into ``nseg`` segments of a multiple of
+    ``unit`` chars (SEG_CHARS for SLOTS, MASK_WORD for MASK): (lo, hi, w0),
     each (B, nseg) int64. Segment k covers [lo, hi) (empty when lo >= hi);
     its warm-up starts at w0 <= lo - 2m, a multiple of 16, where a fresh
     Myers state gives exact scores from lo on."""
     lens = lens.long()
     seg = (lens + nseg - 1) // nseg
-    seg = (seg + SEG_CHARS - 1) // SEG_CHARS * SEG_CHARS
+    seg = (seg + unit - 1) // unit * unit
     lo = torch.arange(nseg, device=lens.device)[None, :] * seg[:, None]
     hi = torch.minimum(lo + seg[:, None], lens[:, None])
     w0 = torch.clamp((lo - 2 * m) // 16 * 16, min=0)
@@ -266,6 +276,63 @@ def adapter_mask_ref(codes: torch.Tensor, lens: torch.Tensor, peq, m: int):
     return d.T.contiguous().to(torch.int32), pack_mask_bits(mask)
 
 
+def adapter_mask_segments_ref(codes: torch.Tensor, lens: torch.Tensor, peq, m: int,
+                              nseg: int):
+    """Plain version of MASK's one-pass segmented scan (any device): the
+    same (d (2, B) int32, bits (B, 2, L // 32) int32) as ``adapter_mask_ref``,
+    computed as the kernel does. Each of a read's ``nseg`` segments
+    (``segment_bounds`` in whole words) steps its warm-up, then keeps per
+    strand a running min d, the bits of the current word at d and cur, the
+    word of d's last drop, and stores each finished word. The merge takes
+    the read's min D over its segments and zeroes, per segment, the words
+    before cur where d == D, and all its words where d > D."""
+    dev = codes.device
+    B, L = codes.shape
+    W = L // MASK_WORD
+    tab = torch.zeros((5, 2), dtype=torch.int32, device=dev)  # code 4+: no match
+    tab[:4] = torch.from_numpy(np.asarray(peq, np.int32)).to(dev).T
+    lens = torch.clamp(lens.to(dev).long(), max=L)
+    lo, hi, w0 = (t.reshape(-1) for t in segment_bounds(lens, nseg, m, unit=MASK_WORD))
+    rid = torch.arange(B, device=dev).repeat_interleave(nseg)
+    n = rid.numel()
+    pv = torch.full((n, 2), -1, dtype=torch.int32, device=dev)
+    mv = torch.zeros((n, 2), dtype=torch.int32, device=dev)
+    score = torch.full((n, 2), m, dtype=torch.int32, device=dev)
+    d = score.clone()
+    w = torch.zeros((n, 2), dtype=torch.int64, device=dev)
+    cur = (lo >> 5)[:, None].repeat(1, 2)
+    out = torch.zeros((B, 2, W), dtype=torch.int64, device=dev)
+    live = lo < hi
+    steps = int((hi - w0)[live].max()) if bool(live.any()) else 0
+    for t in range(steps):
+        pos = w0 + t
+        valid = live & (pos < hi)
+        code = torch.clamp(codes[rid, torch.clamp(pos, max=L - 1)].long(), max=4)
+        npv, nmv, nscore = _step(pv, mv, score, tab[code], m)
+        pv = torch.where(valid[:, None], npv, pv)
+        mv = torch.where(valid[:, None], nmv, mv)
+        score = torch.where(valid[:, None], nscore, score)
+        inseg = (valid & (pos >= lo))[:, None]
+        word = (pos >> 5)[:, None]
+        drop = inseg & (score < d)
+        d = torch.where(drop, score, d)
+        w = torch.where(drop, 0, w)
+        cur = torch.where(drop, word, cur)
+        w = w | torch.where(inseg & (score == d), 1 << (pos & 31)[:, None], 0)
+        flush = inseg[:, 0] & (((pos & 31) == 31) | (pos == hi - 1))  # a word ends
+        i = flush.nonzero(as_tuple=True)[0]
+        out[rid[i], :, word[i, 0]] = w[i]
+        w = torch.where(flush[:, None], 0, w)
+    big_d = d.reshape(B, nseg, 2).amin(dim=1)  # (B, 2); empty reads: m
+    end = torch.where(d == big_d[rid], cur, ((hi + 31) >> 5)[:, None])
+    wi = torch.arange(W, device=dev)
+    zero = (live[:, None, None] & (wi >= (lo >> 5)[:, None, None])
+            & (wi < end[:, :, None]))  # (n, 2, W)
+    out = torch.where(zero.reshape(B, nseg, 2, W).any(dim=1), 0, out)
+    bits = torch.where(out >= 1 << 31, out - (1 << 32), out).to(torch.int32)
+    return big_d.T.contiguous().to(torch.int32), bits
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -279,6 +346,24 @@ def nseg_for(b: int, row_bytes: int) -> int:
            and 4 * row_bytes // (2 * nseg) >= MIN_SEG):
         nseg *= 2
     return nseg
+
+
+def mask_nseg_for(b: int, row_len: int) -> int:
+    """Segments per read for a MASK launch of ``b`` reads of rows of
+    ``row_len`` chars: the fewest (a power of two) whose threads (one per
+    read, strand and segment) fill the card, with segments of at least
+    MASK_MIN_SEG chars."""
+    nseg = 1
+    while (nseg < MASK_MAX_NSEG and 2 * b * nseg < MASK_TARGET_THREADS
+           and row_len // (2 * nseg) >= MASK_MIN_SEG):
+        nseg *= 2
+    return nseg
+
+
+def _check_nseg(nseg: int, most: int) -> int:
+    if nseg not in [1 << i for i in range(most.bit_length())]:
+        raise ValueError(f"nseg must be a power of two <= {most}, got {nseg}")
+    return nseg.bit_length() - 1
 
 
 def _check_launch(text, lens, peq, m, what: str):
@@ -321,9 +406,7 @@ def adapter_scan(text: torch.Tensor, lens: torch.Tensor, peq, m: int,
     if rb == 0 or rb % 16 or text.data_ptr() % 16:
         raise ValueError("text rows must be a nonzero multiple of 16 bytes, "
                          "16-byte aligned")
-    nseg = nseg_for(B, rb) if nseg is None else nseg
-    if nseg not in (1, 2, 4, 8, 16, 32):
-        raise ValueError(f"nseg must be a power of two <= {MAX_NSEG}, got {nseg}")
+    log_nseg = _check_nseg(nseg_for(B, rb) if nseg is None else nseg, MAX_NSEG)
     from . import _build
 
     out = torch.empty((N_OUT, B), dtype=torch.int32, device=text.device)
@@ -331,7 +414,7 @@ def adapter_scan(text: torch.Tensor, lens: torch.Tensor, peq, m: int,
     with torch.cuda.device(text.device):
         err = lib.sctag_adapter_scan(
             text.data_ptr(), B, rb, lens.data_ptr(), peq_host.ctypes.data, m,
-            nseg.bit_length() - 1, out.data_ptr(), _stream(text.device),
+            log_nseg, out.data_ptr(), _stream(text.device),
         )
     if err != 0:
         raise RuntimeError(f"sctag_adapter_scan launch failed: cudaError {err}")
@@ -339,10 +422,13 @@ def adapter_scan(text: torch.Tensor, lens: torch.Tensor, peq, m: int,
     return out
 
 
-def adapter_mask(codes: torch.Tensor, lens: torch.Tensor, peq, m: int):
+def adapter_mask(codes: torch.Tensor, lens: torch.Tensor, peq, m: int,
+                 nseg: int | None = None):
     """Exact argmin mask of the reads SLOTS cannot decide (K6, MASK): (d
     (2, B) int32, bits (B, 2, L // 32) int32). CPU tensors take the plain
-    version; CUDA tensors launch the kernel."""
+    version; CUDA tensors launch the kernel with ``mask_nseg_for`` segments
+    per read. ``nseg`` overrides that count; it is a test hook, so that a
+    check on the card can cover every segment count."""
     global MASK_LAUNCHES
     if codes.device.type == "cpu":
         return adapter_mask_ref(codes, lens, peq, m)
@@ -350,17 +436,19 @@ def adapter_mask(codes: torch.Tensor, lens: torch.Tensor, peq, m: int):
         raise ValueError(f"no adapter-mask kernel for device {codes.device}")
     peq_host = _check_launch(codes, lens, peq, m, "codes")
     B, L = codes.shape
-    if L == 0 or L % MASK_WORD:
-        raise ValueError(f"codes rows must be a nonzero multiple of {MASK_WORD} bytes")
+    if L == 0 or L % MASK_WORD or codes.data_ptr() % 16:
+        raise ValueError(f"codes rows must be a nonzero multiple of {MASK_WORD} "
+                         "bytes, 16-byte aligned")
+    log_nseg = _check_nseg(mask_nseg_for(B, L) if nseg is None else nseg, MASK_MAX_NSEG)
     from . import _build
 
     d = torch.empty((2, B), dtype=torch.int32, device=codes.device)
-    bits = torch.zeros((B, 2, L // MASK_WORD), dtype=torch.int32, device=codes.device)
+    bits = torch.empty((B, 2, L // MASK_WORD), dtype=torch.int32, device=codes.device)
     lib = _build.load("adapter_scan")
     with torch.cuda.device(codes.device):
         err = lib.sctag_adapter_mask(
             codes.data_ptr(), B, L, lens.data_ptr(), peq_host.ctypes.data, m,
-            d.data_ptr(), bits.data_ptr(), _stream(codes.device),
+            log_nseg, d.data_ptr(), bits.data_ptr(), _stream(codes.device),
         )
     if err != 0:
         raise RuntimeError(f"sctag_adapter_mask launch failed: cudaError {err}")

@@ -14,8 +14,10 @@ from __future__ import annotations
 import pathlib
 import subprocess
 import sys
+import time
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]  # the repository checkout
+SPIN_CYCLES = 20_000_000  # ~10 ms of the card's clock: device_ms's head start
 
 
 def require_cuda():
@@ -52,6 +54,30 @@ def cuda_ms(fn, reps: int) -> float:
         fn()
     t1.record()
     t1.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device ms of ``fn`` over ``reps`` calls queued behind a spin
+    kernel, so the card runs them back to back and the host's launch cost
+    does not count. Raises if the host took longer to queue them than the
+    spin lasts (its gaps would count)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0.record()
+    h0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queued = time.perf_counter() - h0
+    t1.record()
+    t1.synchronize()
+    if queued * 1e3 > SPIN_CYCLES / 2e6:  # 2 GHz at most
+        raise RuntimeError(f"device_ms: queueing took {queued * 1e3:.1f} ms")
     return t0.elapsed_time(t1) / reps
 
 

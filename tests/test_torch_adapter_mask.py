@@ -12,9 +12,14 @@ against the JAX package.
 - The split of a read into segments (``adapter_scan_segments_ref`` +
   ``merge_segment_rows``, what the kernel computes) against the unsplit
   ``adapter_scan_ref``, with tie runs that cross segment borders.
+- MASK's one-pass segmented scan (``adapter_mask_segments_ref``, what the
+  MASK kernel computes) at every segment count against ``adapter_mask_ref``
+  and the JAX ``_hw_block``; the cut of a read into whole mask words and
+  the choice of the segment count.
 
 Tolerance: exact equality (integers)."""
 
+import functools
 import gzip
 
 import jax.numpy as jnp
@@ -191,3 +196,107 @@ def test_nseg_fills_the_card_for_small_chunks():
     assert ac.nseg_for(300, 16) == 1  # rows too short to split
     assert all(ac.nseg_for(b, rb) in (1, 2, 4, 8, 16, 32)
                for b in (1, 300, 16_384, 10**6) for rb in (16, 752, 18_000))
+
+
+def _mask_reads(rng, adapter: str) -> list[str]:
+    """Junk, > SLOTS_K and > 64 ends, reads shorter than m and than 2m,
+    empty reads, ragged lengths, and tie runs that cross word and segment
+    borders (a homopolymer, adapter repeats every 70 and 64 chars)."""
+    m = len(adapter)
+    reads = _reads(rng, adapter)[::2]
+    reads += [_dna(rng, 2 * m - 1), _dna(rng, m + 1), "", "A" * 700,
+              "A" * 130 + "C" + "A" * 300, (adapter + "G" * (70 - m)) * 6,
+              (adapter + "T" * (64 - m)) * 8 + adapter[:10]]
+    reads += [_dna(rng, int(rng.integers(0, 900))) for _ in range(12)]
+    return reads
+
+
+@functools.lru_cache(maxsize=None)
+def _mask_case(m: int):
+    """(codes, lens, peq2, JAX d (B, 2), JAX mask (L, B, 2)) of m's reads."""
+    adapter = ADAPTERS[m]
+    codes, lens, peq2 = _inputs(_mask_reads(np.random.default_rng(200 + m), adapter),
+                                adapter)
+    jd, jmask = jax_adapter._hw_block(
+        jnp.asarray(codes.astype(np.int32).T), jnp.asarray(peq2),
+        jnp.asarray(lens.astype(np.int32)), m,
+    )
+    return codes, lens, peq2, np.asarray(jd), np.asarray(jmask)
+
+
+@pytest.mark.parametrize("nseg", [1, 2, 4, 8, 16, 32])
+@pytest.mark.parametrize("m", sorted(ADAPTERS))
+def test_mask_segments_ref_matches_ref_and_jax(m, nseg):
+    codes, lens, peq2, jd, jmask = _mask_case(m)
+    c, ln, peq = torch.from_numpy(codes), torch.from_numpy(lens), ac.prep_peq(peq2)
+    d, bits = ac.adapter_mask_segments_ref(c, ln, peq, m, nseg)
+    want_d, want_bits = ac.adapter_mask_ref(c, ln, peq, m)
+    assert torch.equal(d, want_d) and torch.equal(bits, want_bits)
+    np.testing.assert_array_equal(d.numpy().T, jd)
+    for r in range(len(lens)):
+        for p in range(2):
+            np.testing.assert_array_equal(ac.mask_ends(bits[r, p].numpy()),
+                                          np.flatnonzero(jmask[:, r, p]))
+    # the reads' minima fall in several segments and in several words
+    lo, hi, _ = ac.segment_bounds(ln, nseg, m, unit=ac.MASK_WORD)
+    spread = words = 0
+    for r in range(len(lens)):
+        ends = ac.mask_ends(bits[r, 0].numpy())
+        segs = {int(((lo[r] <= e) & (e < hi[r])).nonzero()[0]) for e in ends}
+        spread += len(segs) > 1
+        words += len(set(ends >> 5)) > 1
+    assert words > 0 and (spread > 0 or nseg == 1)
+
+
+@pytest.mark.parametrize("nseg", [1, 2, 4, 8, 16, 32])
+def test_mask_segments_cover_each_read_once(nseg):
+    """MASK's cut: whole words, each position in exactly one segment, a
+    warm-up of 2m to 64 chars (at most 4 loads of 16) before each."""
+    lens = torch.tensor([0, 1, 21, 31, 32, 33, 43, 44, 64, 65, 700, 1000, 2999, 3008,
+                         72_001])
+    for m in (1, 22, 32):
+        lo, hi, w0 = ac.segment_bounds(lens, nseg, m, unit=ac.MASK_WORD)
+        assert torch.equal(torch.clamp(hi - lo, min=0).sum(dim=1), lens)
+        pos = torch.arange(int(lens.max()))
+        inside = ((lo[:, :, None] <= pos) & (pos < hi[:, :, None])).sum(dim=1)
+        assert torch.equal(inside, (pos < lens[:, None]).long())
+        assert bool((lo % ac.MASK_WORD == 0).all()) and bool((w0 % 16 == 0).all())
+        assert bool(((w0 <= lo - 2 * m) | (w0 == 0)).all())
+        assert bool((lo - w0 <= 64).all())
+
+
+def test_mask_nseg_sized_to_the_launch():
+    assert ac.mask_nseg_for(102, 3008) == 32  # the main path's launch: short chains
+    assert ac.mask_nseg_for(4096, 3008) == 8  # the largest: ~256-char segments
+    assert ac.mask_nseg_for(1, 32) == 1  # rows too short to split
+    assert ac.mask_nseg_for(2048, 3008) == 16
+    for b in (1, 100, 4096, 10**5):
+        for row_len in (32, 1024, 3008, 72_032):
+            n = ac.mask_nseg_for(b, row_len)
+            assert n in (1, 2, 4, 8, 16, 32)
+            assert row_len // n >= ac.MASK_MIN_SEG or n == 1
+            assert (n == ac.MASK_MAX_NSEG or 2 * b * n >= ac.MASK_TARGET_THREADS
+                    or row_len // (2 * n) < ac.MASK_MIN_SEG)
+
+
+@pytest.mark.parametrize("nseg,log", [(1, 0), (2, 1), (4, 2), (8, 3), (16, 4), (32, 5),
+                                      (3, None), (64, None), (0, None)])
+def test_mask_nseg_hook_values(nseg, log):
+    if log is None:
+        with pytest.raises(ValueError, match="power of two"):
+            ac._check_nseg(nseg, ac.MASK_MAX_NSEG)
+    else:
+        assert ac._check_nseg(nseg, ac.MASK_MAX_NSEG) == log
+
+
+def test_mask_wrapper_cpu_and_other_devices():
+    """CPU tensors take the plain version (no launch, the hook aside); any
+    other device raises; nothing falls back."""
+    codes, lens, peq2, jd, _ = _mask_case(22)
+    c, ln, peq = torch.from_numpy(codes), torch.from_numpy(lens), ac.prep_peq(peq2)
+    before = ac.MASK_LAUNCHES
+    d, _ = ac.adapter_mask(c, ln, peq, 22, nseg=4)
+    assert ac.MASK_LAUNCHES == before
+    np.testing.assert_array_equal(d.numpy().T, jd)
+    with pytest.raises(ValueError, match="no adapter-mask kernel"):
+        ac.adapter_mask(c.to("meta"), ln.to("meta"), peq, 22)

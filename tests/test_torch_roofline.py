@@ -1,8 +1,8 @@
 """The int32 microkernel's plain version (sctagger_tpu_torch.ops.micro_cuda
 .micro_ref) against the Pallas body it ports (tools/roofline.py
 _micro_kernel, interpret mode on the CPU), the op-count formula, the SASS
-loop counter of the port's roofline tool, and the measurement tools'
-refusal to run without a card.
+loop counter of the port's roofline tool, the issue-rate bound, and the
+measurement tools' refusal to run without a card.
 
 Tolerance: exact equality (int32 outputs)."""
 
@@ -151,3 +151,92 @@ def test_tools_refuse_to_run_without_a_card(tool, argv, capsys):
         tool.main(argv)
     assert exc.value.code == 1
     assert "torch.cuda.is_available() is false" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("sms,mhz,sass,want_ms", [
+    (132, 1980, 33_454_080_000, 1.0),  # H100 SXM at its maximum clock: 33.45 T/s
+    (132, 990, 33_454_080_000, 2.0),  # half the clock, twice the time
+    (114, 1755, 114 * 128 * 1755e6 * 3e-3, 3.0),  # another part
+    (132, 1980, 0, 0.0),
+])
+def test_issue_bound_follows_from_sass_and_clock(sms, mhz, sass, want_ms):
+    """The issue rate: SMs x 4 schedulers x 32 lanes x the SM clock; the
+    bound: the SASS count over it."""
+    assert roofline.issue_rate(sms, mhz) == sms * 4 * 32 * mhz * 1e6
+    assert roofline.issue_bound_ms(sass, sms, mhz) == pytest.approx(want_ms)
+
+
+@pytest.mark.parametrize("line,want", [
+    ("NVIDIA H100 80GB HBM3, 700.00 W, 1980 MHz, 1980 MHz\n",
+     {"gpu": "NVIDIA H100 80GB HBM3, 700.00 W", "sm_mhz": 1980, "max_sm_mhz": 1980}),
+    ("NVIDIA H100 PCIe, 350.00 W, 345 MHz, 1755 MHz",
+     {"gpu": "NVIDIA H100 PCIe, 350.00 W", "sm_mhz": 345, "max_sm_mhz": 1755}),
+])
+def test_parse_clocks(line, want):
+    assert roofline.parse_clocks(line) == want
+
+
+def test_sass_rates_give_issue_shares():
+    """With an issue rate, K7 at each chain count, the best of them and
+    each kernel get a share of it, counting the instructions the function
+    needs; MASK's loop covers a 32-char word of one strand."""
+    issue = roofline.issue_rate(132, 1980)
+    sass = {"micro_1": 23, "micro_8": 95, "adapter_mask": 696}
+    ceiling = {"by_chains": {1: {"ops_per_s": 29e12}, 8: {"ops_per_s": 40e12}}}
+    kernels = {"adapter_mask": {"cells_per_s": 1e12, "ops_per_cell": 24.0}}
+    roofline.add_sass_rates(ceiling, kernels, sass, issue)
+    # chains 1: its loop (23) exceeds the 21 source ops, which count
+    for c, need in ((1, 21), (8, 95 / 8)):
+        v = ceiling["by_chains"][c]
+        assert v["issue_share"] == pytest.approx(v["ops_per_s"] / 21 * need / issue)
+    assert ceiling["issue_share"] == max(v["issue_share"]
+                                         for v in ceiling["by_chains"].values())
+    k = kernels["adapter_mask"]
+    assert k["sass_per_cell"] == roofline.sass_per_cell(sass, "adapter_mask") == 696 / 32
+    assert k["issue_per_cell"] == 696 / 32
+    assert k["issue_share"] == pytest.approx(1e12 * 696 / 32 / issue)
+    assert "sass_hot_per_cell" not in k  # MASK's loop has no branch
+
+
+@pytest.mark.parametrize("name,ops,want", [
+    ("adapter_scan", 28.0, 651 / 32),  # the hot path, not the whole loop (1214)
+    ("adapter_scan", 16.0, 16.0),  # source ops fewer than the hot path
+    ("adapter_mask", 24.0, 696 / 32),  # no hot path: the whole loop
+    ("adapter_mask", 20.0, 20.0),
+    ("match_full", 22.25, 170 / 8),
+    ("match_ties", 22.25, None),  # not counted: no bound
+])
+def test_issue_per_cell_counts_what_the_function_needs(name, ops, want):
+    """The fewer of the source ops and the compiled hot path per cell, so a
+    branch the hot path skips or an instruction beyond the source's work
+    raises no share."""
+    sass = {"match_full": 170, "adapter_scan": 1214, "adapter_scan_hot": 651,
+            "adapter_mask": 696}
+    assert roofline.issue_per_cell(sass, name, ops) == (
+        None if want is None else pytest.approx(want))
+
+
+def test_mask_inputs_on_the_cpu():
+    """measure_mask's reads: 1,000-3,000 bp plus the adapter, sorted by
+    length, ~2% junk; rows of a multiple of 32 byte codes, junk coded >= 4."""
+    reads = roofline.adapter_reads(40, seed=5)
+    lens = [len(r) for r in reads]
+    assert lens == sorted(lens) and 1022 <= min(lens) and max(lens) < 3022
+    junk = roofline.add_junk(np.random.default_rng(0), reads)
+    assert [len(r) for r in junk] == lens
+    share = sum(r.count("N") for r in junk) / sum(lens)
+    assert 0.015 < share < 0.025 and not any("N" in r for r in reads)
+    codes, ln, peq, m = roofline.mask_rows(junk, torch.device("cpu"))
+    assert codes.shape[1] % 32 == 0 and codes.shape[1] >= max(lens) > codes.shape[1] - 32
+    assert ln.tolist() == lens and m == 22 and peq.shape == (2, 4)
+    for r, row in zip(junk[:5], codes[:5].numpy()):
+        assert np.array_equal(row[: len(r)] >= 4, np.frombuffer(r.encode(), np.uint8) == 78)
+
+
+def test_every_kernel_has_a_sass_pattern():
+    """K1-K5, both K6 entries and K7 at each chain count are counted."""
+    names = set(roofline.SASS_KERNELS)
+    assert {"match_full", "match_full_dynls", "match_min", "match_best", "match_ties",
+            "adapter_scan", "adapter_mask"} <= names
+    assert {f"micro_{c}" for c in mic.CHAINS} <= names
+    assert all(n in roofline.CELLS_PER_TRIP for n in names if not n.startswith("micro_"))
