@@ -744,17 +744,18 @@ def stage1_main_path(n_reads: int, tmp: pathlib.Path) -> dict:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches, mask_launches = ac.LAUNCHES, ac.MASK_LAUNCHES
-    t = _stats(stats_path)["timers_s"]
-    resolved = sum(t.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
-    plain = int(t.get("scan.mask_reads", 0))
+    st = _stats(stats_path)
+    t, c = st["timers_s"], st["counters"]
+    resolved = sum(c.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
+    plain = int(c.get("scan.mask_reads", 0))
     log(f"[lr] extract_lr_bc wall {wall:.3f}s = {n_reads / wall:.1f} reads/s "
         f"({gpu_line()}); stage timers {t}")
     log(f"[lr] prefilter-resolved {int(resolved)}, prefilter-deferred "
-        f"{int(t.get('scan.prefilter_deferred_reads', 0))}, kernel reads "
-        f"{int(t.get('scan.kernel_reads', 0))} in "
-        f"{int(t.get('scan.kernel_chunks', 0))} chunks, K6 SLOTS launches "
+        f"{int(c.get('scan.prefilter_deferred_reads', 0))}, kernel reads "
+        f"{int(c.get('scan.kernel_reads', 0))} in "
+        f"{int(c.get('scan.kernel_chunks', 0))} chunks, K6 SLOTS launches "
         f"{launches}; mask fallback {t.get('scan.mask_fallback', 0.0)}s: MASK reads "
-        f"{int(t.get('scan.mask_kernel_reads', 0))} in {mask_launches} launches, "
+        f"{int(c.get('scan.mask_kernel_reads', 0))} in {mask_launches} launches, "
         f"plain-torch mask reads {plain}")
     if launches == 0 or mask_launches == 0:
         raise AssertionError("the extract_lr_bc main path launched no K6 SLOTS or MASK")

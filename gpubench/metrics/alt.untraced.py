@@ -1,0 +1,8 @@
+"""alt.untraced: the share of the `extract_sr_bc_from_lr` stage span on the
+stage's own thread that no span covers, in %."""
+
+from gpubench.spans import untraced_pct
+
+
+def read(ctx):
+    return untraced_pct(ctx)

@@ -1,0 +1,8 @@
+"""match.untraced: the share of the `match_trie` stage span on the stage's
+own thread that no span covers, in %."""
+
+from gpubench.spans import untraced_pct
+
+
+def read(ctx):
+    return untraced_pct(ctx)

@@ -19,8 +19,10 @@ tools.
 Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   runtime.py          device selection (cuda; cpu only when asked)
   cli.py              the argument surface and the subcommand dispatch
-  observability.py    stage stats, the SCTAG_PROFILE trace, the progress bar
-  utils.py            PROF timers and small helpers (copy)
+  observability.py    stage stats and spans (SCTAG_STATS), the SCTAG_PROFILE
+                      torch.profiler trace with the program's spans, the
+                      progress bar
+  utils.py            small helpers (copy)
   plots.py            the reference's charts (copy)
   core/packing.py     sequence codes and encoders (copy)
   core/ranges.py      adapter-range detection and filtering (copy)

@@ -48,6 +48,7 @@ from ..core.packing import (
     rev_compl,
     seq_lengths,
 )
+from ..observability import count, span
 from ..ops.adapter_cuda import (
     SLOTS_K,
     adapter_mask,
@@ -71,7 +72,7 @@ from ..ops.myers import (
 )
 from ..parallel.mesh import local_mesh, shard_adapter_scan, shard_hw_block
 from ..runtime import resolve_device
-from ..utils import PROF, _PROF_LOCK, batch_iter, full_fast, prof_timer, round_up
+from ..utils import batch_iter, full_fast, round_up
 
 CHUNK_READS = 131072  # reads per kernel launch, at most
 ENC_DEPTH = 4  # chunks packed ahead of their launch
@@ -88,12 +89,6 @@ class AdapterScanResult:
     dists: np.ndarray  # (N,) int32: chosen-strand distance, -1 for NA
     flat_locs: np.ndarray  # (M,) int64 locs concatenated read-major
     loc_counts: np.ndarray  # (N,) int64
-
-
-def _count(key: str, n) -> None:
-    """Add a COUNT (not seconds) to PROF, next to the phase timers."""
-    with _PROF_LOCK:
-        PROF[key] = PROF.get(key, 0.0) + float(n)
 
 
 class _Acc:
@@ -183,7 +178,7 @@ class _KernelPath:
             self.budget = sum(torch.cuda.mem_get_info(d)[0] // 8 for d in cards)
         else:
             self.budget = (1 << 28) * n_data
-        self.pool = ThreadPoolExecutor(1)
+        self.pool = ThreadPoolExecutor(1, thread_name_prefix="scan.encode")
         self.queue: deque = deque()
 
     def __enter__(self):
@@ -218,7 +213,7 @@ class _KernelPath:
             self._pump(block=False)
 
     def _pack(self, sub: np.ndarray, lmax: int):
-        with prof_timer("scan.encode"):
+        with span("scan.encode"):
             return pack_chunk(self.seqs, sub, lmax)
 
     def _pump(self, block: bool) -> None:
@@ -232,7 +227,7 @@ class _KernelPath:
                     f"[scan] kernel chunk: {sub.size} reads <= {text.shape[1] * 4}"
                     " chars", file=sys.stderr,
                 )
-            with prof_timer("scan.kernel"):  # upload, launch and wait
+            with span("scan.kernel"):  # upload, launch and wait
                 if self.mesh is not None:
                     out = shard_adapter_scan(
                         self.mesh, torch.from_numpy(text), torch.from_numpy(lens),
@@ -243,10 +238,10 @@ class _KernelPath:
                         _to(text, self.dev), _to(lens, self.dev), self.peq, self.m
                     )
                 out = out.cpu().numpy()
-            with prof_timer("scan.collect"):
+            with span("scan.collect"):
                 _kernel_collect(out, sub, self.acc, junk)
-            _count("scan.kernel_reads", sub.size)
-            _count("scan.kernel_chunks", 1)
+            count("scan.kernel_reads", sub.size)
+            count("scan.kernel_chunks", 1)
 
 
 def _finalize_scan(
@@ -262,10 +257,10 @@ def _finalize_scan(
         if progress:
             print(f"[scan] mask fallback for {ov.size} reads", file=sys.stderr)
         single = m <= MAX_PATTERN_LEN
-        _count("scan.mask_kernel_reads" if single else "scan.mask_reads", ov.size)
+        count("scan.mask_kernel_reads" if single else "scan.mask_reads", ov.size)
         # several devices: each batch splits over the grid's data axis
         mesh = local_mesh(model_parallel=1, device=dev)
-        with prof_timer("scan.mask_fallback"):
+        with span("scan.mask_fallback"):
             if single:
                 peq = prep_peq(peq2)
                 batch = MASK_KERNEL_BATCH if dev.type == "cuda" else MASK_BATCH
@@ -289,7 +284,7 @@ def _finalize_scan(
                 else:
                     _mask_chunk(codes, lengths[sub], peq_t, m, sub, acc)
 
-    with prof_timer("scan.rev_recovery"):
+    with span("scan.rev_recovery"):
         _recover_rev_starts(seqs, lengths, a2, m, acc, dev)
 
     if acc.loc_rids:
@@ -366,7 +361,7 @@ def scan_adapters_stream(batches, adapter: str, progress: bool = False, device=N
             lens_b = np.asarray(sb.lengths)
             keep = None
             if d0_scan is not None:
-                with prof_timer("scan.d0probe"):
+                with span("scan.d0probe"):
                     keep = d0_scan.apply(
                         sb,
                         raw if raw is not None else d0_scan.raw(sb),
@@ -578,7 +573,7 @@ class _D0Scanner:
             loc_rids.append(np.repeat(g, cnts))
             loc_vals.append(starts - np.repeat(lens_r, cnts) - 1)
         resolved = both | fwd_ok | rev_ok
-        _count("scan.d0_resolved_reads", resolved.sum())
+        count("scan.d0_resolved_reads", resolved.sum())
         return ~resolved
 
     def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):
@@ -692,9 +687,9 @@ class _D1Scanner:
             loc_vals.append(starts - np.repeat(lens_r, cnts) - 1)
         res0 = both0 | fwd0 | rev0
         res1 = both1 | fwd1 | rev1
-        _count("scan.d0_resolved_reads", res0.sum())
-        _count("scan.d1_resolved_reads", res1.sum())
-        _count("scan.prefilter_deferred_reads", (~ok).sum())
+        count("scan.d0_resolved_reads", res0.sum())
+        count("scan.d1_resolved_reads", res1.sum())
+        count("scan.prefilter_deferred_reads", (~ok).sum())
         return ~(res0 | res1)
 
     def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):
@@ -787,8 +782,8 @@ class _D2Scanner:
                 resolved[ri] = True
         dmin = np.minimum(fmin, rmin)
         for d in range(3):
-            _count(f"scan.d{d}_resolved_reads", (resolved & (dmin == d)).sum())
-        _count("scan.prefilter_deferred_reads", (~ok).sum())
+            count(f"scan.d{d}_resolved_reads", (resolved & (dmin == d)).sum())
+        count("scan.prefilter_deferred_reads", (~ok).sum())
         return ~resolved
 
     def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):

@@ -21,7 +21,6 @@ single-word).
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import os
 import sys
@@ -41,6 +40,7 @@ from ..core.packing import (
     rev_compl,
     seq_lengths,
 )
+from ..observability import span
 from ..ops.match_cuda import (
     BIG,
     DEF_BP,
@@ -135,11 +135,14 @@ class MatchContext:
 
             def _build() -> None:
                 try:
-                    self._nb_box["idx"] = NeighborhoodIndex(self.pat_codes)
+                    with span("match.nb_build"):
+                        self._nb_box["idx"] = NeighborhoodIndex(self.pat_codes)
                 except BaseException as e:  # re-raised by nb_index()
                     self._nb_box["err"] = e
 
-            self._nb_thread = threading.Thread(target=_build, daemon=True)
+            self._nb_thread = threading.Thread(
+                target=_build, daemon=True, name="match.nb_build"
+            )
             self._nb_thread.start()
 
     def nb_index(self):
@@ -193,12 +196,15 @@ def match_segments(
     ``stats`` (an observability StageStats) receives the read counts of the
     prefilter, the device sweep and the > TIES_K escalation
     (``escalated_reads``), and the main thread's time waiting for
-    host prep (``match.prep_wait``), for the device (``match.device_wait``)
-    and in tie assembly (``match.ties``)."""
+    host prep (``match.prep_wait``), dispatching chunks to the device
+    (``match.dispatch``), waiting for the device (``match.device_wait``)
+    and in tie assembly (``match.ties``). The prep worker's time
+    (``match.prep``) and the neighborhood build's (``match.nb_build``) go to
+    the running stage (observability.span)."""
     dev = resolve_device(device)
 
     def _timer(key: str):
-        return stats.timer(key) if stats is not None else contextlib.nullcontext()
+        return stats.timer(key) if stats is not None else span(key)
 
     if ctx is None:
         ctx = MatchContext(barcodes)
@@ -277,15 +283,16 @@ def match_segments(
         slices.append((order[s:e], mode))
 
     def _prep(sub: np.ndarray, mode: str):
-        ls = int(lengths[sub].max(initial=0)) or 1
-        codes, _ = encode_rows(segments, sub, pad_to=ls, table=LENIENT_TABLE)
-        if mode == "exact":
-            return codes, exact_tie_probe(codes, lengths[sub], pat_codes)
-        if mode == "full":
-            if d1:
-                return codes, ctx.nb_index().probe(codes, lengths[sub])
-            return codes, exact_tie_probe(codes, lengths[sub], pat_codes)
-        return codes, None
+        with span("match.prep"):
+            ls = int(lengths[sub].max(initial=0)) or 1
+            codes, _ = encode_rows(segments, sub, pad_to=ls, table=LENIENT_TABLE)
+            if mode == "none":
+                return codes, None
+            if mode == "exact" or not d1:
+                return codes, exact_tie_probe(codes, lengths[sub], pat_codes)
+        nb = ctx.nb_index()  # waits for the index build (match.nb_build)
+        with span("match.prep"):
+            return codes, nb.probe(codes, lengths[sub])
 
     # ---- device sweep ------------------------------------------------------
     # A process with several usable devices splits every chunk over a
@@ -311,57 +318,58 @@ def match_segments(
     def _drain(limit: int) -> None:
         while len(pending) > limit:
             ci, rows, ready = pending.popleft()
-            if ready is not None:
-                with _timer("match.device_wait"):
+            with _timer("match.device_wait"):
+                if ready is not None:
                     ready.synchronize()
             out = rows.numpy()[:, : chunks[ci][0].size]
             min_dist[chunks[ci][0]] = out[0]
             tie_by_chunk[ci] = out[1:]
 
     def _dispatch(sub: np.ndarray, codes: np.ndarray) -> None:
-        ll = lengths[sub]
-        ls = int(ll.max()) or 1
-        # on a grid, reads pad to whole DEF_BR blocks on every data slice
-        seg_T = prep_segs_T(codes, ls=ls, br=DEF_BR * dp)
-        ml = None
-        if ll.min() != ll.max():
-            # ragged chunk: each DEF_BR block stops at its own max length
-            ml = np.zeros(seg_T.shape[1], np.int32)
-            ml[: sub.size] = ll
-            ml = torch.from_numpy(ml.reshape(1, -1, DEF_BR).max(axis=2))
-        if mesh is not None:
-            shard = shard_match_full if mp == 1 else shard_match_full_mp
-            rows = shard(mesh, torch.from_numpy(seg_T), peq_dev, bl, maxlens=ml)
-        else:
-            seg_d = torch.from_numpy(seg_T).to(dev, non_blocking=True)
-            if mw:
-                rows = match_full_mw_ref(seg_d, peq_dev, bl)
-            elif ml is None:
-                rows = match_full(seg_d, peq_dev, bl)
+        with _timer("match.dispatch"):
+            ll = lengths[sub]
+            ls = int(ll.max()) or 1
+            # on a grid, reads pad to whole DEF_BR blocks on every data slice
+            seg_T = prep_segs_T(codes, ls=ls, br=DEF_BR * dp)
+            ml = None
+            if ll.min() != ll.max():
+                # ragged chunk: each DEF_BR block stops at its own max length
+                ml = np.zeros(seg_T.shape[1], np.int32)
+                ml[: sub.size] = ll
+                ml = torch.from_numpy(ml.reshape(1, -1, DEF_BR).max(axis=2))
+            if mesh is not None:
+                shard = shard_match_full if mp == 1 else shard_match_full_mp
+                rows = shard(mesh, torch.from_numpy(seg_T), peq_dev, bl, maxlens=ml)
             else:
-                rows = match_full_dynls(seg_d, peq_dev, ml.to(dev), bl)
-        ready = None
-        if rows.device.type == "cuda":
-            # copy into pinned memory behind the kernel on the same stream,
-            # so draining this chunk never waits for chunks queued after it
-            with torch.cuda.device(rows.device):
-                host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
-                host.copy_(rows, non_blocking=True)
-                ready = torch.cuda.Event()
-                ready.record(torch.cuda.current_stream(rows.device))
-            rows = host
-        chunks.append((sub, codes))
-        tie_by_chunk.append(None)
-        pending.append((len(chunks) - 1, rows, ready))
-        counts["device_reads"] += int(sub.size)
-        counts["device_chunks"] += 1
-        _drain(MAX_PENDING)
+                seg_d = torch.from_numpy(seg_T).to(dev, non_blocking=True)
+                if mw:
+                    rows = match_full_mw_ref(seg_d, peq_dev, bl)
+                elif ml is None:
+                    rows = match_full(seg_d, peq_dev, bl)
+                else:
+                    rows = match_full_dynls(seg_d, peq_dev, ml.to(dev), bl)
+            ready = None
+            if rows.device.type == "cuda":
+                # copy into pinned memory behind the kernel on the same stream,
+                # so draining this chunk never waits for chunks queued after it
+                with torch.cuda.device(rows.device):
+                    host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+                    host.copy_(rows, non_blocking=True)
+                    ready = torch.cuda.Event()
+                    ready.record(torch.cuda.current_stream(rows.device))
+                rows = host
+            chunks.append((sub, codes))
+            tie_by_chunk.append(None)
+            pending.append((len(chunks) - 1, rows, ready))
+            counts["device_reads"] += int(sub.size)
+            counts["device_chunks"] += 1
+            _drain(MAX_PENDING)
 
     # Streaming layout: one worker thread encodes + probes slice i+1 while
     # the main thread applies slice i's probe result, repacks the survivors
     # into full chunks and dispatches them. Results are applied strictly in
     # slice order, so the output is that of the serial form.
-    prep_pool = ThreadPoolExecutor(1)
+    prep_pool = ThreadPoolExecutor(1, thread_name_prefix="match.prep")
     prep_q: deque = deque()
     PREP_DEPTH = 2
     try:

@@ -39,6 +39,7 @@ from ..core.packing import (
     pack_kmers_from_codes,
     seq_lengths,
 )
+from ..observability import count, span
 from ..runtime import resolve_device
 from ..utils import round_up
 
@@ -184,11 +185,16 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
     sk = torch.from_numpy(sorted_keys.astype(np.int64))
     vv = torch.from_numpy(values.astype(np.int64))
     mesh = local_mesh(model_parallel=1, device=dev)
-    if mesh is not None:
-        rows *= mesh.shape["data"]
-        tables = replicate(mesh, sk, vv)
-    else:
-        sk, vv = sk.to(dev), vv.to(dev)
+    with span("probe.upload"):
+        if mesh is not None:
+            rows *= mesh.shape["data"]
+            tables = replicate(mesh, sk, vv)
+            uploads = len(tables)
+        else:
+            sk, vv = sk.to(dev), vv.to(dev)
+            uploads = 1
+    count("probe.uploads", uploads)
+    count("probe.upload_bytes", uploads * (sk.nbytes + vv.nbytes))
     enc_packed = getattr(segments, "encode_packed", None)
     junk_rows: list[np.ndarray] = []
     for s in range(0, n, rows):

@@ -47,17 +47,16 @@ from ..models.adapter import (
     scan_adapters,
     scan_adapters_stream,
 )
-from ..observability import progress_bar, stage_scope
+from ..observability import progress_bar, span, stage_scope
 from ..parallel.multihost import make_host_group
 from ..pipeline.checkpoint import PartStore, job_key
 from ..runtime import resolve_device
-from ..utils import PROF, batch_iter, prof_timer
+from ..utils import batch_iter
 
 
 def run(args, device=None) -> None:
     """Run the stage on ``device`` (runtime.resolve_device)."""
     dev = resolve_device(device)
-    PROF.clear()  # per-run phase timers (utils.prof_timer)
     with stage_scope("extract_lr_bc") as stats:
         n_hosts = getattr(args, "n_hosts", 1) or 1
         if n_hosts > 1:
@@ -105,7 +104,7 @@ def _run_multi(args, stats, dev, n_hosts: int) -> None:
         list(args.reads),
         {"sa": args.short_read_adapter, "nb": args.num_bp_after},
     )
-    with stats.timer("read_fastq"), prof_timer("stage.read_fastq"):
+    with stats.timer("read_fastq"):
         _, rnames, seqs = read_fastq_shard(
             args.reads, args.host_id, n_hosts, args.gzipped
         )
@@ -117,13 +116,13 @@ def _run_multi(args, stats, dev, n_hosts: int) -> None:
         scan = scan_adapters(seqs, args.short_read_adapter, progress=True, device=dev)
     stats.count("reads", len(seqs))
     _emit(args, stats, rnames, seqs, scan, group)
-    stats.timers.update(PROF)
 
 
 def _stream_batches(q):
     """Consumer-side iterator over the producer thread's parse queue."""
     while True:
-        item = q.get()
+        with span("scan.parse_wait"):
+            item = q.get()
         if item is None:
             return
         if isinstance(item, BaseException):
@@ -155,10 +154,11 @@ def _run_stream(args, stats, dev):
 
     def _produce():
         # time the parse itself, not the q.put backpressure wait
-        probe_pool = ThreadPoolExecutor(1) if d0 is not None else None
+        probe_pool = (ThreadPoolExecutor(1, thread_name_prefix="scan.d0probe")
+                      if d0 is not None else None)
 
         def _timed_raw(sb):
-            with prof_timer("scan.d0probe_raw"):
+            with span("scan.d0probe_raw"):
                 return d0.raw(sb)
 
         try:
@@ -166,7 +166,7 @@ def _run_stream(args, stats, dev):
             bar = progress_bar(desc="reads", unit="read")
             try:
                 while True:
-                    with prof_timer("stage.read_fastq"):
+                    with span("stage.read_fastq"):
                         b = next(it, None)
                     if b is not None:
                         bar.update(len(b[1]))
@@ -185,7 +185,7 @@ def _run_stream(args, stats, dev):
                 # read: cancel them only when the consumer is gone
                 probe_pool.shutdown(wait=False, cancel_futures=stop.is_set())
 
-    threading.Thread(target=_produce, daemon=True).start()
+    threading.Thread(target=_produce, daemon=True, name="scan.parse").start()
     try:
         with stats.timer("adapter_scan"):
             rnames, seqs, scan = scan_adapters_stream(
@@ -220,7 +220,7 @@ def _run(args, stats, dev) -> None:
     if not store.enabled and os.environ.get("SCTAG_STREAM", "1") != "0":
         rnames, seqs, scan = _run_stream(args, stats, dev)
     else:
-        with stats.timer("read_fastq"), prof_timer("stage.read_fastq"):
+        with stats.timer("read_fastq"):
             rnames, seqs = read_fastqs(args.reads, args.gzipped)
         print(
             f"Aligning {args.short_read_adapter} to {len(seqs)} reads",
@@ -235,7 +235,6 @@ def _run(args, stats, dev) -> None:
                 )
     stats.count("reads", len(seqs))
     _emit(args, stats, rnames, seqs, scan)
-    stats.timers.update(PROF)  # per-phase diagnostics (utils.prof_timer)
 
 
 _SCAN_FIELDS = {"strands": np.int8, "dists": np.int32, "flat_locs": np.int64,
@@ -270,44 +269,37 @@ def _emit(args, stats, rnames, seqs, scan, group=None) -> None:
     """Shared stage tail: range detection -> filtering -> TSV -> plot.
     With a multi-host ``group`` the ranges come from the merged histograms
     and the rows go through the group's part merge."""
-    rf_t = prof_timer("stage.ranges_filter").__enter__()
-    preset = args.ranges
-    if len(preset[0]) + len(preset[1]) == 0:
-        if group is None or group.host_id == 0:
-            print(
-                "No ranges for SR adapters have been preset. "
-                "Detecting directly from data...",
-                file=sys.stderr,
-            )
-        read_of = np.repeat(np.arange(len(seqs)), scan.loc_counts)
-        in_window = (scan.dists >= 0) & (scan.dists <= 5)
-        sel = in_window[read_of]
-        is_fwd = (scan.strands == 0)[read_of]
-        locs_f, locs_r = scan.flat_locs[sel & is_fwd], scan.flat_locs[sel & ~is_fwd]
-        if group is None:
-            ranges = detect_ranges(locs_f, locs_r)
+    with stats.timer("stage.ranges_filter"):
+        preset = args.ranges
+        if len(preset[0]) + len(preset[1]) == 0:
+            if group is None or group.host_id == 0:
+                print(
+                    "No ranges for SR adapters have been preset. "
+                    "Detecting directly from data...",
+                    file=sys.stderr,
+                )
+            read_of = np.repeat(np.arange(len(seqs)), scan.loc_counts)
+            in_window = (scan.dists >= 0) & (scan.dists <= 5)
+            sel = in_window[read_of]
+            is_fwd = (scan.strands == 0)[read_of]
+            locs_f, locs_r = scan.flat_locs[sel & is_fwd], scan.flat_locs[sel & ~is_fwd]
+            if group is None:
+                ranges = detect_ranges(locs_f, locs_r)
+            else:
+                ranges = _detect_ranges_dist(group, locs_f, locs_r)
+            memberships = [RangeMembership(r, include_end=False) for r in ranges]
         else:
-            ranges = _detect_ranges_dist(group, locs_f, locs_r)
-        memberships = [RangeMembership(r, include_end=False) for r in ranges]
-    else:
-        memberships = [RangeMembership(r, include_end=True) for r in preset]
+            memberships = [RangeMembership(r, include_end=True) for r in preset]
 
-    print("Filtering alignments using ranges", file=sys.stderr)
-    dist, loc, s, e, valid = filter_alignments(
-        scan.strands,
-        scan.dists,
-        scan.flat_locs,
-        scan.loc_counts,
-        memberships,
-        args.num_bp_after,
-    )
-
-    rf_t.__exit__()
-    stats.count("valid", int(valid.sum()))
-    # per-distance read counts — the numbers the stage-1 plot encodes
-    vals, cnts = np.unique(dist, return_counts=True)
-    for v, c in zip(vals, cnts):
-        stats.count(f"dist_{'NA' if v == -1 else int(v)}", int(c))
+        print("Filtering alignments using ranges", file=sys.stderr)
+        dist, loc, s, e, valid = filter_alignments(
+            scan.strands,
+            scan.dists,
+            scan.flat_locs,
+            scan.loc_counts,
+            memberships,
+            args.num_bp_after,
+        )
     # seq[s:e or None] without materializing full read strings (SeqBuffer);
     # the invalid-row segment seq[-1:-1] is always ''.
     substr = getattr(seqs, "substr", None) or (
@@ -325,14 +317,14 @@ def _emit(args, stats, rnames, seqs, scan, group=None) -> None:
                 yield f"{rname}\t-1\tNA\t\n"
 
     if group is not None:
-        with prof_timer("stage.write"):
+        with stats.timer("stage.write"):
             group.write_part_and_merge(
                 args.outfile, "".join(_rows()),
                 lambda p: open_out(p, force_gzip=True),
             )
         return
 
-    with prof_timer("stage.write"):
+    with stats.timer("stage.write"):
         wrote = False
         if args.outfile is not None:
             print(f"Writng to {args.outfile}", file=sys.stderr)

@@ -67,12 +67,9 @@ def _run(args, stats) -> None:
     else:
         top, total = _extract_single(args, stats)
 
-    stats.count("alignments_kept", int(total))
-    stats.count("unique_barcodes", len(top))
     with stats.timer("cutoff"):
         hist = barcode_hist(top, total=total, step_size=args.step_size)
         last_idx = elbow_cutoff(hist, n_barcodes=len(top), thresh=args.thresh)
-    stats.count("whitelist", int(last_idx))
 
     if args.plotfile is not None:
         from ..plots import plot_sr_bc_coverage

@@ -59,7 +59,6 @@ def _run(args, stats, dev) -> None:
         print(f"Reading whiltelist barcodes from: {args.barcode_whitelist}")
         barcodes = [l[:-1] for l in infile]
         infile.close()
-    stats.count("whitelist", len(barcodes))
 
     print(f"\n=====\nMatching exact barcodes on long-reads: {args.input}")
     with stats.timer("read_lr_tsv"):
@@ -78,7 +77,6 @@ def _run(args, stats, dev) -> None:
             keep = [i for i, p in enumerate(locs) if p != "NA"]
             take = getattr(segs, "take", None)
             segments = take(keep) if take else [segs[i] for i in keep]
-    stats.count("segments", len(segments))
 
     with stats.timer("key_table"):
         try:
@@ -100,7 +98,6 @@ def _run(args, stats, dev) -> None:
         counts_per_seg, single_val = _scan_with_checkpoint(args, segments, _probe)
 
     matched = counts_per_seg == 1
-    stats.count("matched_segments", int(matched.sum()))
     with stats.timer("rank"):
         vals = np.abs(single_val[matched]).astype(np.uint32)
         if multi:
@@ -119,7 +116,6 @@ def _run(args, stats, dev) -> None:
         sorted_bc = chunked_cutoff(sorted_bc, args.step_size, args.thresh)
 
     print(f"\n=====\nWriting the top {len(sorted_bc)} barcodes")
-    stats.count("written", len(sorted_bc))
     with stats.timer("write"):
         outfile = open_out(args.outfile, force_gzip=True)
         for bc, c in sorted_bc:

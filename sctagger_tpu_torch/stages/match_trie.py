@@ -82,7 +82,6 @@ def _run(args, stats, device) -> None:
     with stats.timer("read"):
         names, _, _, segs = read_lr_segments_tsv(args.long_read_segments)
         print(f"There are {len(names):,} LRs", file=sys.stderr)
-    stats.count("barcodes", len(barcodes))
     stats.count("reads", len(names))
 
     # the batch size defines the part spans, so it keys the store: a resume
@@ -101,21 +100,19 @@ def _run(args, stats, device) -> None:
         # fail fast on an unwritable output path BEFORE the expensive match
         open(args.outfile, "wb").close()
     if store.enabled:
-        with stats.timer("match"):
-            n_matched = _run_checkpointed(
-                args, stats, device, store, batch, names, segs, barcodes
-            )
+        n_matched = _run_checkpointed(
+            args, stats, device, store, batch, names, segs, barcodes
+        )
         stats.count("matched", n_matched)
         return
-    with stats.timer("match"):
-        result = match_segments(
-            segments=segs,
-            barcodes=barcodes,
-            max_error=args.max_error,
-            progress=True,
-            device=device,
-            stats=stats,
-        )
+    result = match_segments(
+        segments=segs,
+        barcodes=barcodes,
+        max_error=args.max_error,
+        progress=True,
+        device=device,
+        stats=stats,
+    )
     with stats.timer("write"):
         wrote = False
         if args.outfile is not None:
@@ -173,7 +170,7 @@ def _run_checkpointed(args, stats, device, store, batch, names, segs,
         )
         return result, bstats
 
-    pool = ThreadPoolExecutor(2)
+    pool = ThreadPoolExecutor(2, thread_name_prefix="match.batch")
     futs: dict = {}
 
     def _ensure(bi: int) -> None:
@@ -194,10 +191,7 @@ def _run_checkpointed(args, stats, device, store, batch, names, segs,
                 stats.count("batches_skipped")
             else:
                 result, bstats = done
-                for k, v in bstats.counters.items():
-                    stats.count(k, v)
-                for k, v in bstats.timers.items():
-                    stats.timers[k] += v
+                stats.merge(bstats)
                 seg_b = segs[s:e]
                 # part files are read back with load_text (UTF-8); the native
                 # writer emits raw latin-1 bytes, which only coincide for
@@ -246,17 +240,15 @@ def _run_multi(args, stats, device, barcodes, n_hosts: int) -> None:
         f"[host {args.host_id}/{n_hosts}] {len(names):,} LRs in shard",
         file=sys.stderr,
     )
-    stats.count("barcodes", len(barcodes))
     stats.count("reads", len(names))
-    with stats.timer("match"):
-        result = match_segments(
-            segments=segs,
-            barcodes=barcodes,
-            max_error=args.max_error,
-            progress=True,
-            device=device,
-            stats=stats,
-        )
+    result = match_segments(
+        segments=segs,
+        barcodes=barcodes,
+        max_error=args.max_error,
+        progress=True,
+        device=device,
+        stats=stats,
+    )
     with stats.timer("write"):
         text = _render_rows(result, names, segs, barcodes)
         group.write_part_and_merge(

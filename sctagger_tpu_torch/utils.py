@@ -3,7 +3,6 @@ usable everywhere)."""
 
 from __future__ import annotations
 
-import threading
 from typing import Iterator
 
 import numpy as np
@@ -37,36 +36,6 @@ def batch_iter(n: int, batch: int) -> Iterator[tuple[int, int]]:
     """Yield (start, stop) index pairs covering range(n) in chunks of ``batch``."""
     for s in range(0, n, batch):
         yield s, min(s + batch, n)
-
-
-# Cross-module phase timers (diagnostics). Model drivers accumulate wall
-# times per phase here; stage drivers fold the deltas into their structured
-# stats (observability.StageStats), surfaced via SCTAG_STATS.
-PROF: dict[str, float] = {}
-_PROF_LOCK = threading.Lock()
-
-
-class prof_timer:
-    """Context manager adding elapsed wall time to PROF[key] (thread-safe:
-    the streaming stage-1 pipeline times phases from the parse producer, the
-    encode worker, and the consumer concurrently)."""
-
-    def __init__(self, key: str):
-        self.key = key
-
-    def __enter__(self):
-        import time
-
-        self._t0 = time.perf_counter()
-        return self
-
-    def __exit__(self, *exc):
-        import time
-
-        dt = time.perf_counter() - self._t0
-        with _PROF_LOCK:
-            PROF[self.key] = PROF.get(self.key, 0.0) + dt
-        return False
 
 
 class _NullBar:

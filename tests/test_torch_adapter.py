@@ -18,7 +18,7 @@ from sctagger_tpu.io.fastq import SeqBuffer
 from sctagger_tpu.models import adapter as jax_adapter
 from sctagger_tpu_torch.models import adapter as port
 from sctagger_tpu_torch.ops import adapter_cuda
-from sctagger_tpu_torch.utils import PROF
+from sctagger_tpu_torch.observability import stage_scope
 
 torch.set_num_threads(1)
 
@@ -127,20 +127,21 @@ def test_stream_matches_jax(fixture_22, monkeypatch, env):
     parts, reads, want = fixture_22
     for k, v in env.items():
         monkeypatch.setenv(k, v)
-    PROF.clear()
-    names, chain, got = port.scan_adapters_stream(
-        _stream_items(parts), ADAPTER, device="cpu"
-    )
+    with stage_scope("scan") as st:
+        names, chain, got = port.scan_adapters_stream(
+            _stream_items(parts), ADAPTER, device="cpu"
+        )
+    counts = st.counters
     assert len(names) == len(reads) and list(chain) == reads
     _assert_same(got, want)
-    kernel = PROF.get("scan.kernel_reads", 0)
-    resolved = sum(PROF.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
+    kernel = counts.get("scan.kernel_reads", 0)
+    resolved = sum(counts.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
     # every non-empty batch read is decided by the prefilter or the kernel
     assert resolved + kernel == len(reads)
     # junk and > SLOTS_K ends: the MASK entry (its plain version here), no
     # read through the plain-torch mask path
-    assert kernel > 0 and PROF.get("scan.mask_kernel_reads", 0) > 0
-    assert PROF.get("scan.mask_reads", 0) == 0
+    assert kernel > 0 and counts.get("scan.mask_kernel_reads", 0) > 0
+    assert counts.get("scan.mask_reads", 0) == 0
     assert (resolved > 0) == (env["SCTAG_ADAPTER_D0"] == "1")
 
 
@@ -185,15 +186,15 @@ def test_prefilter_counts_each_tier_once(monkeypatch, tier):
     monkeypatch.setenv("SCTAG_ADAPTER_D2", "1" if tier == 2 else "0")
     rng = np.random.default_rng(40 + tier)
     reads = _gen_reads(rng, 120, ADAPTER)
-    PROF.clear()
-    port.scan_adapters_stream(_stream_items([reads]), ADAPTER, device="cpu")
+    with stage_scope("scan") as st:
+        port.scan_adapters_stream(_stream_items([reads]), ADAPTER, device="cpu")
     true_min = _true_min(reads, ADAPTER)
-    counts = [PROF.get(f"scan.d{d}_resolved_reads", 0) for d in range(3)]
+    counts = [st.counters.get(f"scan.d{d}_resolved_reads", 0) for d in range(3)]
     for d in range(3):
         assert counts[d] <= (true_min == d).sum(), (d, counts)
     assert counts[1] > 0 and counts[0] < sum(counts)
     assert (counts[2] > 0) == (tier == 2)
-    assert sum(counts) + PROF["scan.kernel_reads"] == len(reads)
+    assert sum(counts) + st.counters["scan.kernel_reads"] == len(reads)
 
 
 @pytest.mark.parametrize("tier", [1, 2])
@@ -213,9 +214,9 @@ def test_prefilter_deferred_reads_counted(monkeypatch, tier):
     assert type(scanner).__name__ == ("_D1Scanner" if tier == 1 else "_D2Scanner")
     flags = scanner.raw(_sb(reads))[-2]
     assert flags.sum() >= 2
-    PROF.clear()
-    _, _, got = port.scan_adapters_stream(_stream_items([reads]), ADAPTER, device="cpu")
-    assert PROF["scan.prefilter_deferred_reads"] == int((flags != 0).sum())
+    with stage_scope("scan") as st:
+        _, _, got = port.scan_adapters_stream(_stream_items([reads]), ADAPTER, device="cpu")
+    assert st.counters["scan.prefilter_deferred_reads"] == int((flags != 0).sum())
     _assert_same(got, jax_adapter.scan_adapters(reads, ADAPTER))
 
 

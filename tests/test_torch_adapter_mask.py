@@ -21,6 +21,7 @@ Tolerance: exact equality (integers)."""
 
 import functools
 import gzip
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -34,7 +35,6 @@ from sctagger_tpu_torch.core.packing import encode_rows, encode_str, rev_compl
 from sctagger_tpu_torch.models import adapter as port
 from sctagger_tpu_torch.ops import adapter_cuda as ac
 from sctagger_tpu_torch.ops.myers import build_peq_multi
-from sctagger_tpu_torch.utils import PROF
 
 torch.set_num_threads(1)
 
@@ -137,10 +137,13 @@ def test_extract_lr_bc_routes_through_mask(tmp_path, monkeypatch, stream):
     monkeypatch.setenv("SCTAG_STREAM", stream)
     fq = tmp_path / "r.fastq"
     _fastq(fq, np.random.default_rng(9), ADAPTERS[22])
-    PROF.clear()
+    stats = tmp_path / "stats.jsonl"
+    monkeypatch.setenv("SCTAG_STATS", str(stats))
     torch_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "t.tsv.gz")])
-    assert PROF.get("scan.mask_kernel_reads", 0) > 0
-    assert PROF.get("scan.mask_reads", 0) == 0
+    monkeypatch.delenv("SCTAG_STATS")
+    counts = json.loads(stats.read_text())["counters"]  # the stage_scope's record
+    assert counts.get("scan.mask_kernel_reads", 0) > 0
+    assert counts.get("scan.mask_reads", 0) == 0
     jax_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "j.tsv.gz")])
     got = gzip.decompress((tmp_path / "t.tsv.gz").read_bytes())
     assert got == gzip.decompress((tmp_path / "j.tsv.gz").read_bytes())

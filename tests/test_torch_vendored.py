@@ -133,9 +133,6 @@ def test_utils_and_stage_stats(tmp_path, monkeypatch):
     assert list(tutils.batch_iter(10, 4)) == list(jmisc.batch_iter(10, 4))
     np.testing.assert_array_equal(tutils.full_fast((3, 2), 7, np.int16),
                                   jmisc.full_fast((3, 2), 7, np.int16))
-    with tutils.prof_timer("vendored.test"):
-        pass
-    assert "vendored.test" in tutils.PROF and "vendored.test" not in jmisc.PROF
     out = tmp_path / "stats.jsonl"
     monkeypatch.setenv("SCTAG_STATS", str(out))
     for mod in (jobs, tobs):
