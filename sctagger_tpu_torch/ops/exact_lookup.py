@@ -13,15 +13,23 @@ Dictionary semantics reproduced exactly:
   * a window containing any non-ACGT byte matches nothing (exact char match);
   * per segment, >1 window hit => ambiguous (handled by the caller).
 
+The key table (``build_key_table``) is built in torch on the device the
+probe runs on: one host join of the whitelist, then the 2-bit codes, the
+fwd and rc keys, a stable sort and keep-last on that device. Keys and
+values are int64 tensors (torch's uint32 support is thin); the stage
+builds them on the card for the device probe, which takes them where they
+are (no upload), and on the CPU for the host probe, which reads them as
+numpy views.
+
 Two probes, chosen by ``SCTAG_PROBE``:
   * ``host`` (default): the native threaded hash probe over the raw segment
     bytes (native/exact_probe.cpp);
   * ``device``: 2-bit-packed rows up, a binary search of every window in the
     sorted key table (``torch.searchsorted``) and the per-row reduction on
-    the device, (count, single value) per row down. Keys are int64: torch's
-    uint32 support is thin. Rows with in-sequence non-ACGT bytes cannot ride
-    the 2-bit pack; they get length 0 on the device and go through the host
-    probe.
+    the device, (count, single value) per row down. Rows with in-sequence
+    non-ACGT bytes cannot ride the 2-bit pack; they get length 0 on the
+    device and go through the host probe (the table copied down for them
+    alone).
 Neither probe falls back to the other: a failure raises.
 """
 
@@ -35,8 +43,6 @@ import torch
 from ..core.packing import (
     STRICT_TABLE,
     encode_rows,
-    encode_seqs,
-    pack_kmers_from_codes,
     seq_lengths,
 )
 from ..observability import count, span
@@ -47,75 +53,63 @@ PROBE_CHUNK = 65536  # rows per device probe step, at most
 _ROW_BUDGET = 1 << 23  # rows x padded length per device step (int64 windows)
 
 
-def _revcomp_keys(keys: np.ndarray, k: int) -> np.ndarray:
-    """Numeric reverse-complement of 2-bit-packed keys (A=0,C=1,G=2,T=3, so
-    complement = 3 - code = code ^ 3): reverse the 2-bit groups with the
-    O(log w) swap ladder, realign, and XOR the complement mask. Replaces
-    building 3M rc *strings* + re-encoding them (~13 s at the 10x whitelist
-    scale, the alt-stage prep wall — VERDICT r3 #8 follow-up)."""
-    assert k <= 16, k
-    y = keys.astype(np.uint32)
-    m = np.uint32
-    y = ((y & m(0x33333333)) << m(2)) | ((y >> m(2)) & m(0x33333333))
-    y = ((y & m(0x0F0F0F0F)) << m(4)) | ((y >> m(4)) & m(0x0F0F0F0F))
-    y = ((y & m(0x00FF00FF)) << m(8)) | ((y >> m(8)) & m(0x00FF00FF))
-    y = (y << m(16)) | (y >> m(16))
-    y >>= m(32 - 2 * k)
-    return y ^ m((1 << (2 * k)) - 1)
-
-
-def _encode_uniform(words: list[str], k: int) -> np.ndarray:
-    """(n, k) STRICT codes via ONE join + LUT instead of a per-string Python
-    loop; raises ValueError on ragged/non-1-byte input (callers fall back).
-
-    Uniformity must be checked PER WORD: a ragged list whose lengths merely
-    sum to n*k (e.g. 8+14+2 with k=8) would otherwise mis-split silently
-    into wrong keys instead of reaching the host-dict fallback."""
-    if any(len(w) != k for w in words):
-        raise ValueError("ragged whitelist; use host fallback")
-    blob = "".join(words).encode("latin-1", errors="strict")
-    if len(blob) != len(words) * k:  # multi-byte chars slipped through
-        raise ValueError("non-1-byte whitelist; use host fallback")
-    return STRICT_TABLE[np.frombuffer(blob, np.uint8)].reshape(len(words), k)
-
-
-def build_key_table(words_fwd: list[str], words_rc: list[str] | None = None):
+def build_key_table(words_fwd: list[str], words_rc: list[str] | None = None,
+                    device=None):
     """Pack fwd (values +i) then rc (values -i) words; later entries win.
 
-    Returns (sorted_keys uint32, values int64). Raises ValueError if any word
-    is not pure uppercase ACGT of uniform length <= 16 (callers fall back to
-    the host dict path). ``words_rc=None`` (the production stage) derives the
-    rc keys numerically from the fwd keys — no rc strings are ever built.
+    Returns (sorted_keys, values), int64 tensors on ``device`` (the CPU when
+    None). Raises ValueError if any word is not pure uppercase ACGT of
+    uniform length <= 16 (callers fall back to the host dict path).
+    ``words_rc=None`` (the production stage) packs each rc key beside its
+    fwd key: no rc strings are ever built.
+
+    One join of the words, each followed by a newline, is the only host
+    pass; the 2-bit codes, keys, sort and keep-last run on ``device``. The
+    newline column proves the words uniform: a ragged list cannot put a
+    newline at every (k + 1)-th byte and only ACGT in between.
     """
     n = len(words_fwd)
     k = len(words_fwd[0]) if n else 0
     if n == 0 or k == 0 or k > 16:
         raise ValueError("empty or overlong whitelist; use host fallback")
-    if words_rc is None:
+    dev = torch.device("cpu" if device is None else device)
+    words = words_fwd if words_rc is None else words_fwd + words_rc
+    m = len(words)
+    with span("key_table.encode"):
         try:
-            codes = _encode_uniform(words_fwd, k)
+            blob = bytearray("\n".join(words + [""]), "latin-1")
         except UnicodeEncodeError:
             raise ValueError("non-latin-1 whitelist; use host fallback")
-        if (codes > 3).any():
-            raise ValueError("non-ACGT whitelist; use host fallback")
-        lens = np.full(n, k, np.int64)
-        fwd_keys, _ = pack_kmers_from_codes(codes, lens, k)
-        keys = np.concatenate([fwd_keys[:, 0], _revcomp_keys(fwd_keys[:, 0], k)])
-    else:
-        all_words = words_fwd + words_rc
-        codes, lens = encode_seqs(all_words, pad_to=k, table=STRICT_TABLE)
-        if (lens != k).any() or (codes > 3).any():
+    if len(blob) != m * (k + 1):
+        raise ValueError("ragged whitelist; use host fallback")
+    with span("key_table.build"):
+        rows = torch.frombuffer(blob, dtype=torch.uint8).to(dev).view(m, k + 1)
+        lut = torch.from_numpy(STRICT_TABLE).to(dev)
+        bad = rows[:, k] != ord("\n")
+        fwd = torch.zeros(m, dtype=torch.int64, device=dev)
+        rc = torch.zeros(m if words_rc is None else 0, dtype=torch.int64, device=dev)
+        for i in range(k):  # char 0 in the top bits; the rc key's at the bottom
+            c = torch.index_select(lut, 0, rows[:, i].int())  # 4: not ACGT
+            bad |= c > 3
+            fwd.bitwise_left_shift_(2).bitwise_or_(c)
+            if words_rc is None:
+                rc.bitwise_or_((c ^ 3).long() << (2 * i))
+        del rows
+        if bool(bad.any()):
             raise ValueError("non-ACGT or ragged whitelist; use host fallback")
-        keys, _ = pack_kmers_from_codes(codes, lens, k)
-        keys = keys[:, 0]
-    values = np.concatenate(
-        [np.arange(n, dtype=np.int64), -np.arange(n, dtype=np.int64)]
-    )
-    # keep-LAST duplicate semantics: reverse, then unique keeps first
-    rev_keys = keys[::-1]
-    rev_vals = values[::-1]
-    uniq, first_idx = np.unique(rev_keys, return_index=True)
-    return uniq.astype(np.uint32), rev_vals[first_idx]
+        keys = torch.cat([fwd, rc])
+        del fwd, rc
+        keys, order = torch.sort(keys, stable=True)
+        last = torch.ones_like(keys, dtype=torch.bool)  # keep-LAST of each run
+        last[:-1] = keys[1:] != keys[:-1]
+        keys, order = keys[last], order[last]
+        values = torch.where(order < n, order, n - order)  # rc i sits at n + i
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+    count("key_table.entries", keys.numel())
+    count("key_table.overwritten", last.numel() - keys.numel())
+    count("key_table.on_device", int(dev.type == "cuda"))
+    return keys, values
 
 
 def probe_rows_packed(sorted_keys: torch.Tensor, values: torch.Tensor,
@@ -147,14 +141,16 @@ def probe_rows_packed(sorted_keys: torch.Tensor, values: torch.Tensor,
     return c, sv
 
 
-def probe_segments(segments, sorted_keys: np.ndarray, values: np.ndarray,
+def probe_segments(segments, sorted_keys: torch.Tensor, values: torch.Tensor,
                    k: int, chunk: int = PROBE_CHUNK, device=None):
     """For each segment: (n_hits, value of the single hit or 0).
 
+    ``sorted_keys``, ``values``: build_key_table's tensors, on any device.
     Hits are counted over every k-window. Returns (counts (N,), single_val
-    (N,)) int64, single_val meaningful only where counts == 1. The probe is
-    ``SCTAG_PROBE``'s (``host``, the default, or ``device``; module note);
-    the device probe runs on ``device`` (runtime.resolve_device).
+    (N,)) int64 numpy arrays, single_val meaningful only where counts == 1.
+    The probe is ``SCTAG_PROBE``'s (``host``, the default, or ``device``;
+    module note); the device probe runs on ``device``
+    (runtime.resolve_device).
     """
     probe = os.environ.get("SCTAG_PROBE", "host")
     if probe == "host":
@@ -172,7 +168,7 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
     copied back. Junk rows (in-sequence non-ACGT) go to the host probe.
     With several devices (parallel/mesh.py) each step holds ``chunk`` rows
     per data slice and splits over the grid, the key table copied to each
-    device once."""
+    device once. A table already on ``dev`` is not copied."""
     from ..parallel.mesh import local_mesh, replicate, shard_probe
 
     n = len(segments)
@@ -182,19 +178,18 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
         return counts, single_val
     L = round_up(max(int(seq_lengths(segments).max()), k), 4)  # L % 4 == 0
     rows = max(1, min(chunk, _ROW_BUDGET // L))
-    sk = torch.from_numpy(sorted_keys.astype(np.int64))
-    vv = torch.from_numpy(values.astype(np.int64))
     mesh = local_mesh(model_parallel=1, device=dev)
     with span("probe.upload"):
         if mesh is not None:
             rows *= mesh.shape["data"]
-            tables = replicate(mesh, sk, vv)
-            uploads = len(tables)
+            tables = replicate(mesh, sorted_keys, values)
+            placed = [sk for sk, _ in tables.values()]
         else:
-            sk, vv = sk.to(dev), vv.to(dev)
-            uploads = 1
+            sk, vv = sorted_keys.to(dev), values.to(dev)
+            placed = [sk]
+    uploads = sum(t is not sorted_keys for t in placed)  # .to() keeps a tensor in place
     count("probe.uploads", uploads)
-    count("probe.upload_bytes", uploads * (sk.nbytes + vv.nbytes))
+    count("probe.upload_bytes", uploads * (sorted_keys.nbytes + values.nbytes))
     enc_packed = getattr(segments, "encode_packed", None)
     junk_rows: list[np.ndarray] = []
     for s in range(0, n, rows):
@@ -221,7 +216,7 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
         single_val[idx] = v.cpu().numpy()
     if junk_rows:
         jr = np.concatenate(junk_rows)
-        jc, jv = _probe_rows_host(
+        jc, jv = _probe_rows_host(  # the table comes down only here
             [segments[int(i)] for i in jr], sorted_keys, values, k
         )
         counts[jr] = jc
@@ -229,13 +224,15 @@ def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
     return counts, single_val
 
 
-def _probe_rows_host(segments, sorted_keys: np.ndarray, values: np.ndarray,
+def _probe_rows_host(segments, sorted_keys: torch.Tensor, values: torch.Tensor,
                      k: int):
-    """Native threaded hash probe over raw segment bytes (exact_probe.cpp)."""
+    """Native threaded hash probe over raw segment bytes (exact_probe.cpp);
+    the table's tensors are read on the host (a view when on the CPU)."""
     from ..native import build as native_build
 
     lib = native_build.load()
     n = len(segments)
+    sorted_keys, values = sorted_keys.cpu().numpy(), values.cpu().numpy()
     if values.size and int(np.abs(values).max()) >= 2**31:
         raise ValueError("values exceed int32 (hash table layout)")
     # open-addressing table, load factor <= 0.5 (hash_table.cpp layout)
@@ -245,7 +242,7 @@ def _probe_rows_host(segments, sorted_keys: np.ndarray, values: np.ndarray,
     tkeys = np.zeros(size, np.uint32)
     tvals = np.zeros(size, np.int32)
     tvals.fill(np.iinfo(np.int32).min)
-    keys_c = np.ascontiguousarray(sorted_keys.view(np.uint32))
+    keys_c = sorted_keys.astype(np.uint32)
     vals_c = np.ascontiguousarray(values.astype(np.int32))
     lib.sctag_hash_build(
         keys_c.ctypes.data, vals_c.ctypes.data, len(sorted_keys), size,

@@ -80,8 +80,9 @@ def _run(args, stats, dev) -> None:
 
     with stats.timer("key_table"):
         try:
-            # rc keys derived numerically inside build_key_table: no rc strings
-            sorted_keys, values = build_key_table(barcodes)
+            # rc keys packed inside build_key_table (no rc strings), on the
+            # device probe's device, or the CPU for the host probe
+            sorted_keys, values = build_key_table(barcodes, device=dev)
 
             def _probe(batch):
                 return probe_segments(

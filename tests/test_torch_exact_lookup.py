@@ -1,7 +1,8 @@
 """The alt stage's whitelist lookup (sctagger_tpu_torch/ops/exact_lookup.py)
 against sctagger_tpu/ops/exact_lookup.py on the same numpy-seeded inputs
 (CPU). Tolerance: exact equality of keys, values and per-row (count,
-single value)."""
+single value). The port's key table is int64 tensors holding the values of
+the JAX package's (uint32 keys, int64 values)."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,7 @@ import jax.numpy as jnp
 import sctagger_tpu.ops.exact_lookup as jxl
 import sctagger_tpu_torch.ops.exact_lookup as txl
 from sctagger_tpu.core.packing import STRICT_TABLE, rev_compl
+from sctagger_tpu_torch.observability import stage_scope
 
 torch.set_num_threads(1)
 
@@ -21,15 +23,21 @@ def _dna(rng, n: int) -> str:
 
 
 def _whitelist(rng, k: int, n: int = 60) -> list[str]:
-    """Random barcodes plus two palindromes (their own reverse complement)
-    and a pair that are each other's reverse complement."""
+    """Random barcodes plus two palindromes (their own reverse complement),
+    a pair that are each other's reverse complement and, last, a repeat of
+    word n // 2."""
     wl = [_dna(rng, k) for _ in range(n)]
     half = _dna(rng, k // 2)
     wl.insert(5, half + rev_compl(half))  # palindrome: keep-last gives -5
     other = _dna(rng, k // 2)
     wl.append(other + rev_compl(other))
-    wl.insert(20, rev_compl(wl[10]))
+    wl.insert(20, rev_compl(wl[10]))  # word 10's key keeps -20
+    wl.append(wl[n // 2])  # a repeat: its key keeps the later index
     return wl
+
+
+def _key(word: str) -> int:
+    return int(word.translate(str.maketrans("ACGT", "0123")), 4)
 
 
 def _segments(rng, wl: list[str], k: int, n: int = 400) -> list[str]:
@@ -55,23 +63,44 @@ def _segments(rng, wl: list[str], k: int, n: int = 400) -> list[str]:
     return segs
 
 
-@pytest.mark.parametrize("k", [12, 16])
-def test_key_table_and_revcomp_keys(k):
+@pytest.mark.parametrize("form", ["numeric_rc", "words_rc"])
+@pytest.mark.parametrize("k", [8, 12, 16])
+def test_key_table_and_revcomp_keys(k, form):
+    """The torch build (CPU) == the JAX package's, value for value, with rc
+    keys packed beside the fwd ones or from explicit rc words."""
     rng = np.random.default_rng(k)
     wl = _whitelist(rng, k)
-    got_k, got_v = txl.build_key_table(wl)
-    want_k, want_v = jxl.build_key_table(wl)
-    np.testing.assert_array_equal(got_k, want_k)
-    np.testing.assert_array_equal(got_v, want_v)
-    assert got_k.dtype == want_k.dtype and got_v.dtype == want_v.dtype
-    # the palindromes and the rc pair keep their LAST value (-i)
+    rc = None if form == "numeric_rc" else [rev_compl(w) for w in wl]
+    got_k, got_v = txl.build_key_table(wl, rc)
+    want_k, want_v = jxl.build_key_table(wl, rc)
+    assert got_k.dtype == torch.int64 and got_v.dtype == torch.int64
+    assert want_k.dtype == np.uint32 and want_v.dtype == np.int64
+    np.testing.assert_array_equal(got_k.numpy(), want_k.astype(np.int64))
+    np.testing.assert_array_equal(got_v.numpy(), want_v)
+    # keep-LAST: the palindrome and the rc pair keep -i, the repeat its
+    # later index (fwd and rc)
     v = dict(zip(got_k.tolist(), got_v.tolist()))
-    assert v[int(txl.build_key_table([wl[5]])[0][0])] == -5
-    keys = jxl.build_key_table(wl)[0]
-    np.testing.assert_array_equal(txl._revcomp_keys(keys, k), jxl._revcomp_keys(keys, k))
-    # the explicit rc-strings form agrees with the numeric one
-    for a, b in zip(txl.build_key_table(wl, [rev_compl(w) for w in wl]), (got_k, got_v)):
-        np.testing.assert_array_equal(a, b)
+    assert v[_key(wl[5])] == -5 and v[_key(wl[10])] == -20
+    assert v[_key(wl[30])] == len(wl) - 1
+    assert v[_key(rev_compl(wl[30]))] == -(len(wl) - 1)
+    # the numeric and the explicit rc forms agree
+    for a, b in zip(txl.build_key_table(wl, [rev_compl(w) for w in wl]),
+                    txl.build_key_table(wl)):
+        assert torch.equal(a, b)
+
+
+def test_key_table_spans_and_counters():
+    """The build's spans and counters: entries kept, entries a later add
+    replaced (fwd/rc overlaps and repeats), and where it was built."""
+    rng = np.random.default_rng(5)
+    wl = _whitelist(rng, 16)
+    with stage_scope("t") as st:
+        keys, _ = txl.build_key_table(wl)
+    assert st.counters["key_table.entries"] == keys.numel()
+    # palindromes 2, the rc pair 2, the repeat's fwd and rc 2
+    assert st.counters["key_table.overwritten"] == 2 * len(wl) - keys.numel() == 6
+    assert st.counters["key_table.on_device"] == 0
+    assert {"key_table.encode", "key_table.build"} <= set(st.timers)
 
 
 def _packed(segs, k):
@@ -109,7 +138,7 @@ def test_device_probe_equals_jax_probe_rows_packed(k):
     assert any(len(s) < k for s in segs)
 
 
-@pytest.mark.parametrize("k", [12, 16])
+@pytest.mark.parametrize("k", [8, 12, 16])
 def test_probe_segments_host_equals_device(k, monkeypatch):
     rng = np.random.default_rng(200 + k)
     wl = _whitelist(rng, k)
@@ -141,7 +170,7 @@ def test_probe_segments_device_on_a_seqbuffer(tmp_path, monkeypatch):
     sk, vv = txl.build_key_table(wl)
     monkeypatch.setenv("SCTAG_PROBE", "device")
     got = txl.probe_segments(buf, sk, vv, 16, chunk=64, device="cpu")
-    want = jxl._probe_rows_host(segs, sk, vv, 16)
+    want = jxl._probe_rows_host(segs, *jxl.build_key_table(wl), 16)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
 
@@ -149,15 +178,23 @@ def test_probe_segments_device_on_a_seqbuffer(tmp_path, monkeypatch):
 @pytest.mark.parametrize("words", [
     ["ACGTACGT", "ACGTACGTACGTAC", "AC"],  # ragged (lengths sum to 3 x 8)
     ["ACGTACGTACGTACGT", "ACGTNCGTACGTACGT", "TTTTACGTACGTACGA"],  # non-ACGT
-], ids=["ragged", "non_acgt"])
+    ["ACGTACGTACGTACGTA", "TTTTACGTACGTACGAC"],  # k = 17
+    [],
+    ["ACGTACGT", "ACGT\u00c4CGT"],  # one byte in latin-1, not ACGT
+    ["ACGTACGT", "ACGT\u03a9CGT"],  # not latin-1
+    ["ACGTACGT", "ACG\nACGT", "TTTTACGT"],  # a newline inside a word
+    ["ACGTACGT", "acgtacgt"],  # lower case
+], ids=["ragged", "non_acgt", "overlong", "empty", "latin1", "non_latin1",
+        "newline", "lower_case"])
 def test_exotic_whitelists_go_to_host_dict_fallback(words):
-    with pytest.raises(ValueError):
-        txl.build_key_table(words)
-    with pytest.raises(ValueError):
-        jxl.build_key_table(words)
+    rc = [w[::-1].translate(str.maketrans("ACGT", "TGCA")) for w in words]
+    for words_rc in (None, rc):
+        with pytest.raises(ValueError):
+            txl.build_key_table(words, words_rc)
+        with pytest.raises(ValueError):
+            jxl.build_key_table(words, words_rc)
     rng = np.random.default_rng(3)
     segs = [_dna(rng, 6) + w + _dna(rng, 3) for w in words] + [_dna(rng, 30)]
-    rc = [rev_compl(w) for w in words]
     for a, b in zip(txl.host_dict_fallback(segs, words, rc),
                     jxl.host_dict_fallback(segs, words, rc)):
         np.testing.assert_array_equal(a, b)

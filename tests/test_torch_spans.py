@@ -253,8 +253,8 @@ STAGES = {
     "extract_sr_bc_from_lr": (
         _alt_argv, {"SCTAG_PROBE": "device"},
         ["read_whitelist", "read_lr_tsv", "key_table", "probe", "rank", "write",
-         "probe.upload"],
-        ["probe.uploads", "probe.upload_bytes"], {},
+         "probe.upload", "key_table.encode", "key_table.build"],
+        ["key_table.entries"], {},
     ),
 }
 
@@ -274,6 +274,8 @@ def test_stage_records_what_the_benchmark_reads(tmp_path, stats_file, monkeypatc
     assert set(timers) <= set(rec["timers_s"]), sorted(rec["timers_s"])
     assert set(counters) <= set(rec["counters"]), sorted(rec["counters"])
     assert all(rec["counters"][k] > 0 for k in counters)
+    if stage == "extract_sr_bc_from_lr":  # the key table is built where it is probed
+        assert rec["counters"]["probe.uploads"] == rec["counters"]["probe.upload_bytes"] == 0
     assert not set(rec["counters"]) & set(rec["timers_s"])
     names = {s["name"] for s in rec["spans"]}
     assert set(rec["timers_s"]) <= names
