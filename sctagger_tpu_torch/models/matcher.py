@@ -236,7 +236,13 @@ def match_segments(
         and bl <= 31
     )
     exact_pairs: list[tuple[np.ndarray, np.ndarray]] = []  # (rids, pids)
-    counts = {"prefilter_resolved": 0, "device_reads": 0, "device_chunks": 0}
+    # device_chunks_ragged: chunks swept by the ragged entry (K2); sweep_cells:
+    # the read positions the sweep steps through, per pattern, and
+    # sweep_pad_cells those past a read's own length (up to its block's
+    # longest read, and the pad reads of a chunk's last block)
+    counts = {"prefilter_resolved": 0, "prefilter_d1_resolved": 0,
+              "device_reads": 0, "device_chunks": 0, "device_chunks_ragged": 0,
+              "sweep_cells": 0, "sweep_pad_cells": 0}
 
     def _take_exact(sub: np.ndarray, ex) -> np.ndarray | None:
         """Record a probe result (rids local to ``sub``); returns the local
@@ -252,6 +258,7 @@ def match_segments(
             gm, cm, pids = g, cnts, ex.pids
         else:
             min_dist[g] = dists
+            counts["prefilter_d1_resolved"] += int(np.count_nonzero(dists == 1))
             ok = dists <= max_error  # mr=0: dist-1 reads resolve unmatched
             gm = g[ok]
             cm = cnts[ok]
@@ -361,8 +368,12 @@ def match_segments(
             chunks.append((sub, codes))
             tie_by_chunk.append(None)
             pending.append((len(chunks) - 1, rows, ready))
+            cells = seg_T.size if ml is None else int(ml.sum()) * DEF_BR
             counts["device_reads"] += int(sub.size)
             counts["device_chunks"] += 1
+            counts["device_chunks_ragged"] += ml is not None
+            counts["sweep_cells"] += cells
+            counts["sweep_pad_cells"] += cells - int(ll.sum())
             _drain(MAX_PENDING)
 
     # Streaming layout: one worker thread encodes + probes slice i+1 while

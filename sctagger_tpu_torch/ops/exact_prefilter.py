@@ -50,6 +50,8 @@ import os
 
 import numpy as np
 
+from ..observability import count
+
 # native probe threads: both host cores (the probe runs while the device
 # crunches the previous chunk; numpy phases release the GIL anyway)
 _N_THREADS = int(os.environ.get("SCTAG_PROBE_THREADS", "0")) or (
@@ -369,14 +371,16 @@ class NeighborhoodIndex:
             table_pos = np.repeat(lo_hit - excl, counts) + np.arange(total)
             reads_l.append(np.repeat(wread[ii], counts))
             pids_l.append(spids[table_pos].astype(np.int64))
-            dists_l.append(sdists[table_pos])
+            # 2 * dist, + 1 for a window of length bl +- 1 (an indel)
+            dists_l.append(sdists[table_pos] * np.uint8(2) + np.uint8(k != self.bl))
         if not reads_l:
             return _empty_d1()
         reads = np.concatenate(reads_l)
         pids = np.concatenate(pids_l)
         dists = np.concatenate(dists_l)
 
-        # dedup (read, pid) keeping the min dist, order (read asc, pid asc)
+        # dedup (read, pid) keeping the min dist, order (read asc, pid asc);
+        # at equal dist a length-bl window's hit is kept before an indel's
         srt = np.lexsort((dists, pids, reads))
         r, p, d = reads[srt], pids[srt], dists[srt]
         keep = np.ones(r.size, bool)
@@ -386,8 +390,11 @@ class NeighborhoodIndex:
         rids, counts = np.unique(r, return_counts=True)
         starts = np.zeros(rids.size, np.int64)
         np.cumsum(counts[:-1], out=starts[1:])
-        rmin = np.minimum.reduceat(d, starts)
-        at_min = d == np.repeat(rmin, counts)
+        rmin = np.minimum.reduceat(d, starts) >> 1
+        at_min = (d >> 1) == np.repeat(rmin, counts)
+        # reads at dist 1 with a tie that only a bl +- 1 window reaches
+        count("prefilter_d1_indel",
+              np.count_nonzero(np.logical_or.reduceat(at_min & (d == 3), starts)))
         p = p[at_min]
         tie_counts = np.add.reduceat(at_min, starts)
         offsets = np.zeros(rids.size + 1, np.int64)

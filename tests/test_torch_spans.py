@@ -16,7 +16,10 @@ import numpy as np
 import pytest
 import torch
 
+from gpubench import manifest
 from gpubench import spans as gb_spans
+from gpubench.stages import match_trie as gb_match
+from gpubench.traffic import ont_segments
 from sctagger_tpu_torch import observability as obs
 from sctagger_tpu_torch.cli import main as torch_main
 from sctagger_tpu_torch.core.packing import rev_compl
@@ -195,6 +198,18 @@ def _match_argv(tmp, rng):
             "-mr", "2", "-o", str(tmp / "out.tsv")]
 
 
+def _ont_argv(tmp, rng):
+    """The sr25k.match.ont cell's traffic at a small size: ragged
+    filter_aln cuts with indels, from both strands."""
+    spec = manifest.cell("sr25k.match.ont")
+    config = {**spec["config_data"], "segments_per_invocation": 3000,
+              "whitelist_barcodes": 300}
+    params = {**spec["workload"]["params"], "warm_rows": 200}
+    data = ont_segments.generate(params, config, int(rng.integers(1 << 31)))
+    files = gb_match.write_inputs(data, config, params, tmp)
+    return gb_match.argv(files, config, tmp / "out.tsv.gz", warm=False)
+
+
 def _lr_argv(tmp, rng):
     recs = []
     for i in range(400):
@@ -236,6 +251,14 @@ STAGES = {
         ["read", "write", "match.prep_wait", "match.device_wait", "match.ties",
          "match.prep", "match.nb_build", "match.dispatch"],
         ["prefilter_resolved", "reads", "device_reads"],
+        {"match.prep": "match.prep", "match.nb_build": "match.nb_build"},
+    ),
+    "match_trie.ont": (
+        _ont_argv, {},
+        ["read", "write", "match.prep_wait", "match.device_wait", "match.ties",
+         "match.prep", "match.nb_build", "match.dispatch"],
+        ["prefilter_d1_resolved", "prefilter_d1_indel", "device_chunks_ragged",
+         "sweep_cells", "sweep_pad_cells"],
         {"match.prep": "match.prep", "match.nb_build": "match.nb_build"},
     ),
     "extract_lr_bc": (
