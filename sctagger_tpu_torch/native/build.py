@@ -1,10 +1,11 @@
 """Build/load the port's native host library (BGZF+BAM reader, FASTQ
 reader/packer, TSV reader and writers, the pattern-range search, the host
-adapter prefilters, the whitelist hash table and its threaded probe).
+adapter prefilters, the whitelist hash table and its threaded probe, the
+whole-file gzip inflate).
 
 The sources in this directory are copies of the JAX package's
-(``sctagger_tpu/native``). They compile with g++ (plain C ABI + ctypes) at
-first use into
+(``sctagger_tpu/native``), but for the port's own ``gz_inflate.cpp``. They
+compile with g++ (plain C ABI + ctypes) at first use into
 ``build/sctagger_tpu_torch/`` at the repository root, under a file name
 keyed by a hash of the sources and flags, so an edited source rebuilds and
 this library is never the JAX package's file.
@@ -32,6 +33,7 @@ _SRCS = [
     _DIR / "adapter_d0.cpp",
     _DIR / "adapter_d1.cpp",
     _DIR / "adapter_d2.cpp",
+    _DIR / "gz_inflate.cpp",
 ]
 _HDRS = [_DIR / "adapter_verify.h"]  # hashed, not compiled directly
 BUILD_DIR = _DIR.parents[1] / "build" / "sctagger_tpu_torch"
@@ -309,6 +311,14 @@ def _set_signatures(lib) -> None:
         ctypes.c_void_p,   # ends1
         ctypes.c_void_p,   # ends2
         ctypes.c_void_p,   # flags
+    ]
+    lib.sctag_inflate_file.restype = ctypes.c_int
+    lib.sctag_inflate_file.argtypes = [
+        ctypes.c_char_p,                    # path
+        ctypes.c_int,                       # gz (0: the file's bytes)
+        ctypes.POINTER(ctypes.c_void_p),    # out
+        ctypes.POINTER(ctypes.c_int64),     # out_len
+        ctypes.POINTER(ctypes.c_char_p),    # error
     ]
     lib.sctag_free.restype = None
     lib.sctag_free.argtypes = [ctypes.c_void_p]

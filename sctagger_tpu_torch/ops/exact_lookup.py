@@ -14,7 +14,8 @@ Dictionary semantics reproduced exactly:
   * per segment, >1 window hit => ambiguous (handled by the caller).
 
 The key table (``build_key_table``) is built in torch on the device the
-probe runs on: one host join of the whitelist, then the 2-bit codes, the
+probe runs on: the whitelist's bytes as the stage read them (one buffer,
+io/whitelist.py) or one host join of its words, then the 2-bit codes, the
 fwd and rc keys, a stable sort and keep-last on that device. Keys and
 values are int64 tensors (torch's uint32 support is thin); the stage
 builds them on the card for the device probe, which takes them where they
@@ -53,8 +54,7 @@ PROBE_CHUNK = 65536  # rows per device probe step, at most
 _ROW_BUDGET = 1 << 23  # rows x padded length per device step (int64 windows)
 
 
-def build_key_table(words_fwd: list[str], words_rc: list[str] | None = None,
-                    device=None):
+def build_key_table(words_fwd, words_rc: list[str] | None = None, device=None):
     """Pack fwd (values +i) then rc (values -i) words; later entries win.
 
     Returns (sorted_keys, values), int64 tensors on ``device`` (the CPU when
@@ -63,25 +63,29 @@ def build_key_table(words_fwd: list[str], words_rc: list[str] | None = None,
     ``words_rc=None`` (the production stage) packs each rc key beside its
     fwd key: no rc strings are ever built.
 
-    One join of the words, each followed by a newline, is the only host
-    pass; the 2-bit codes, keys, sort and keep-last run on ``device``. The
-    newline column proves the words uniform: a ragged list cannot put a
-    newline at every (k + 1)-th byte and only ACGT in between.
+    ``words_fwd`` is a list of str, or io.whitelist.FixedStrideWords (with
+    ``words_rc=None``), whose buffer is taken as it is. A list is joined,
+    each word followed by a newline: the only host pass. The 2-bit codes,
+    keys, sort and keep-last run on ``device``. The newline column proves
+    the words uniform: a ragged list cannot put a newline at every
+    (k + 1)-th byte and only ACGT in between.
     """
     n = len(words_fwd)
     k = len(words_fwd[0]) if n else 0
     if n == 0 or k == 0 or k > 16:
         raise ValueError("empty or overlong whitelist; use host fallback")
     dev = torch.device("cpu" if device is None else device)
-    words = words_fwd if words_rc is None else words_fwd + words_rc
-    m = len(words)
+    m = n if words_rc is None else n + len(words_rc)
     with span("key_table.encode"):
-        try:
-            blob = bytearray("\n".join(words + [""]), "latin-1")
-        except UnicodeEncodeError:
-            raise ValueError("non-latin-1 whitelist; use host fallback")
-    if len(blob) != m * (k + 1):
-        raise ValueError("ragged whitelist; use host fallback")
+        blob = getattr(words_fwd, "buf", None)  # FixedStrideWords: no join
+        if blob is None:
+            words = words_fwd if words_rc is None else words_fwd + words_rc
+            try:
+                blob = bytearray("\n".join(words + [""]), "latin-1")
+            except UnicodeEncodeError:
+                raise ValueError("non-latin-1 whitelist; use host fallback")
+        if len(blob) != m * (k + 1):
+            raise ValueError("ragged whitelist; use host fallback")
     with span("key_table.build"):
         rows = torch.frombuffer(blob, dtype=torch.uint8).to(dev).view(m, k + 1)
         lut = torch.from_numpy(STRICT_TABLE).to(dev)

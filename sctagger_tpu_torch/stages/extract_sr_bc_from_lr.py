@@ -4,12 +4,14 @@ segments.
 
 Pipeline (reference scTagger.py:792-844): read the 10x whitelist (NOTE the
 reference strips exactly one trailing char per line, `l[:-1]` — reproduced,
-so a file without a trailing newline loses its last char) -> exact-match
-every segment window against fwd+rc of every whitelist barcode
-(ops/exact_lookup.py; host probe by default, ``SCTAG_PROBE=device`` on the
-card) -> drop ambiguous reads (>1 hit) -> count by abs(index), fwd/rc
-merged -> sort by count desc (ties keep first-increment order) -> cap,
-chunked threshold cutoff -> TSV `barcode \\t count` (gzipped when -o given).
+so a file without a trailing newline loses its last char; a file of
+fixed-stride lines is read as one buffer, no string per line) and build its
+key table -> exact-match every segment window against fwd+rc of every
+whitelist barcode (ops/exact_lookup.py; host probe by default,
+``SCTAG_PROBE=device`` on the card) -> drop ambiguous reads (>1 hit) ->
+count by abs(index), fwd/rc merged -> sort by count desc (ties keep
+first-increment order) -> cap, chunked threshold cutoff -> TSV
+`barcode \\t count` (gzipped when -o given).
 
 With SCTAG_CHECKPOINT_DIR set, the probe runs in SCTAG_CHECKPOINT_BATCH-row
 batches whose (counts, single_val) arrays persist as npz parts; a re-run
@@ -31,7 +33,8 @@ from ..core.cutoff import chunked_cutoff
 from ..core.packing import rev_compl
 from ..io.sharding import read_tsv_shard
 from ..io.tsv import open_maybe_gz, open_out, read_lr_segments_tsv
-from ..observability import progress_bar, stage_scope
+from ..io.whitelist import read_whitelist
+from ..observability import count, progress_bar, stage_scope
 from ..ops.exact_lookup import build_key_table, host_dict_fallback, probe_segments
 from ..ops.topk_count import count_and_rank_host
 from ..parallel.multihost import make_host_group
@@ -54,11 +57,7 @@ def run(args, device=None) -> None:
 def _run(args, stats, dev) -> None:
     n_hosts = getattr(args, "n_hosts", 1) or 1
     multi = n_hosts > 1
-    with stats.timer("read_whitelist"):
-        infile = open_maybe_gz(args.barcode_whitelist)
-        print(f"Reading whiltelist barcodes from: {args.barcode_whitelist}")
-        barcodes = [l[:-1] for l in infile]
-        infile.close()
+    barcodes, probe = _whitelist(args.barcode_whitelist, stats, dev)
 
     print(f"\n=====\nMatching exact barcodes on long-reads: {args.input}")
     with stats.timer("read_lr_tsv"):
@@ -78,25 +77,8 @@ def _run(args, stats, dev) -> None:
             take = getattr(segs, "take", None)
             segments = take(keep) if take else [segs[i] for i in keep]
 
-    with stats.timer("key_table"):
-        try:
-            # rc keys packed inside build_key_table (no rc strings), on the
-            # device probe's device, or the CPU for the host probe
-            sorted_keys, values = build_key_table(barcodes, device=dev)
-
-            def _probe(batch):
-                return probe_segments(
-                    batch, sorted_keys, values, k=len(barcodes[0]), device=dev
-                )
-        except ValueError:
-            print("whitelist not uniform ACGT; using host fallback", file=sys.stderr)
-            barcodes_rc = [rev_compl(b) for b in barcodes]
-
-            def _probe(batch):
-                return host_dict_fallback(batch, barcodes, barcodes_rc)
-
     with stats.timer("probe"):
-        counts_per_seg, single_val = _scan_with_checkpoint(args, segments, _probe)
+        counts_per_seg, single_val = _scan_with_checkpoint(args, segments, probe)
 
     matched = counts_per_seg == 1
     with stats.timer("rank"):
@@ -123,6 +105,50 @@ def _run(args, stats, dev) -> None:
             outfile.write(f"{barcodes[bc]}\t{c}\n")
         if outfile is not sys.stdout:
             outfile.close()
+
+
+def _whitelist(path: str, stats, dev):
+    """(barcodes, probe): the whitelist's words, and the probe of a batch of
+    segments against them, by the key table (built on the probe's device)
+    or by the host dict fallback. A file of fixed-stride lines is read as
+    one buffer (io/whitelist.py) and its table built from that buffer; any
+    other file, or one whose buffer the table refuses (\\r\\n endings,
+    lowercase), is read again as the reference reads it: a list of lines,
+    each less its last char. Counts ``whitelist.fixed_stride``."""
+    table = None
+    with stats.timer("read_whitelist"):
+        try:
+            barcodes = read_whitelist(path)
+        except OSError:  # unreadable or not intact gzip: the line read raises
+            barcodes = None
+        if barcodes is not None:
+            print(f"Reading whiltelist barcodes from: {path}")
+    if barcodes is not None:
+        with stats.timer("key_table"):
+            try:
+                table = build_key_table(barcodes, device=dev)
+            except ValueError:  # \r\n endings, lowercase, N: the line list below
+                pass
+    count("whitelist.fixed_stride", int(table is not None))
+    if table is None:
+        with stats.timer("read_whitelist"):
+            infile = open_maybe_gz(path)
+            if barcodes is None:  # else printed above
+                print(f"Reading whiltelist barcodes from: {path}")
+            barcodes = [l[:-1] for l in infile]
+            infile.close()
+        with stats.timer("key_table"):
+            try:
+                # rc keys packed inside build_key_table (no rc strings), on
+                # the device probe's device, or the CPU for the host probe
+                table = build_key_table(barcodes, device=dev)
+            except ValueError:
+                print("whitelist not uniform ACGT; using host fallback", file=sys.stderr)
+                barcodes_rc = [rev_compl(b) for b in barcodes]
+                return barcodes, lambda batch: host_dict_fallback(batch, barcodes, barcodes_rc)
+    sorted_keys, values = table
+    k = len(barcodes[0])
+    return barcodes, lambda batch: probe_segments(batch, sorted_keys, values, k=k, device=dev)
 
 
 def _scan_with_checkpoint(args, segments, probe_fn):

@@ -3,8 +3,11 @@ sctagger_tpu.cli.main on the same LR TSVs and whitelists (CPU), under the
 host probe and under the device probe (asked for the CPU).
 
 The gz TSVs must be identical after gunzip. Whitelists cover a gz file with
-a trailing newline, a plain file without one (the reference's `l[:-1]` drops
-its last char), an empty file and one with N (the host dict fallback)."""
+a trailing newline, in one member and in two, a plain file with one and
+without one (the reference's `l[:-1]` drops its last char), an empty file,
+and files that the one-buffer read (io/whitelist.py) hands back to the line
+read: \r\n and lone \r endings, a blank last line, and words with N or in
+lowercase (the host dict fallback)."""
 
 import gzip
 
@@ -29,17 +32,35 @@ def _dna(rng, n: int) -> str:
     return "".join("ACGT"[i] for i in rng.integers(0, 4, size=n))
 
 
+# whitelist files: gz, or plain when PLAIN names them; the line ending and
+# the words' length and case by kind
+PLAIN = ("no_trailing_newline", "empty", "plain_uniform")
+ENDING = {"crlf": "\r\n", "lone_cr": "\r"}
+
+
 def _inputs(tmp_path, rng, wl_kind: str, n_wl=120, n_rows=600):
-    wl = sorted({_dna(rng, 16) for _ in range(n_wl)})
+    k = 15 if wl_kind == "crlf" else 16  # 15 + \r: a 16-byte word the table refuses
+    wl = sorted({_dna(rng, k) for _ in range(n_wl)})
     if wl_kind == "with_n":
         wl[3] = wl[3][:5] + "N" + wl[3][6:]
-    text = "".join(b + "\n" for b in wl)
-    if wl_kind == "gz" or wl_kind == "with_n":
+    if wl_kind == "lowercase":
+        wl = [b.lower() for b in wl]
+    text = "".join(b + ENDING.get(wl_kind, "\n") for b in wl)
+    if wl_kind == "blank_last_line":
+        text += "\n"
+    if wl_kind not in PLAIN:
         wl_path = tmp_path / "wl.txt.gz"
-        wl_path.write_bytes(gzip.compress(text.encode()))
+        if wl_kind == "multi_member_gz":  # members split mid-line
+            cut = len(text) // 3
+            wl_path.write_bytes(gzip.compress(text[:cut].encode())
+                                + gzip.compress(text[cut:].encode()))
+        else:
+            wl_path.write_bytes(gzip.compress(text.encode()))
     else:
         wl_path = tmp_path / "wl.txt"
-        wl_path.write_text("" if wl_kind == "empty" else text[:-1])
+        wl_path.write_bytes(b"" if wl_kind == "empty" else
+                            text.encode()[:-1] if wl_kind == "no_trailing_newline"
+                            else text.encode())
     weights = 1.0 / (np.arange(len(wl)) + 1.0) ** 1.1
     weights /= weights.sum()
     rows = []
@@ -75,14 +96,18 @@ def _both(tmp_path, argv):
 
 
 @pytest.mark.parametrize("probe", ["host", "device"])
-@pytest.mark.parametrize("wl_kind", ["gz", "no_trailing_newline", "empty", "with_n"])
+@pytest.mark.parametrize("wl_kind", [
+    "gz", "no_trailing_newline", "empty", "with_n", "crlf", "lone_cr",
+    "blank_last_line", "multi_member_gz", "lowercase", "plain_uniform",
+])
 def test_cli_matches_jax(tmp_path, monkeypatch, probe, wl_kind):
     rng = np.random.default_rng(len(wl_kind))
     wl, lr = _inputs(tmp_path, rng, wl_kind)
     monkeypatch.setenv("SCTAG_PROBE", probe)
     want, got = _both(tmp_path, ["-i", str(lr), "-wl", str(wl), "--step-size", "20"])
     assert got == want
-    if wl_kind == "empty":
+    if wl_kind in ("empty", "blank_last_line"):
+        # the blank line's empty word hits at every position: all ambiguous
         assert got == b""
     else:
         assert got.count(b"\n") > 10

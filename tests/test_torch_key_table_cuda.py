@@ -1,5 +1,6 @@
 """The alt stage's key table built on the card (ops/exact_lookup.py
-build_key_table) against the same build on the CPU, and the device probe
+build_key_table), from a list of words and from the whitelist's one buffer,
+against the same build on the CPU, and the device probe
 handed the table on the card or on the CPU. Needs a CUDA device: skips
 without one. tests/conftest.py imports JAX, which the card's machine lacks,
 so run these there without it:
@@ -7,12 +8,15 @@ so run these there without it:
     python -m pytest --noconftest -m card tests/test_torch_key_table_cuda.py
 """
 
+import gzip
+
 import numpy as np
 import pytest
 import torch
 
 import sctagger_tpu_torch.ops.exact_lookup as txl
 from sctagger_tpu_torch.core.packing import rev_compl
+from sctagger_tpu_torch.io.whitelist import read_whitelist
 
 pytestmark = pytest.mark.card
 
@@ -52,6 +56,20 @@ def test_key_table_on_the_card_equals_the_cpu_build(card):
     # the rc pairs and repeats replace two entries each, the palindromes one
     distinct = set(wl) | {rev_compl(w) for w in wl}
     assert want_k.numel() == len(distinct) <= 2 * len(wl) - 5000
+
+
+def test_key_table_on_the_card_from_the_whitelist_buffer(card, tmp_path):
+    """The whitelist file read as one buffer (io/whitelist.py) and uploaded
+    as it is, against the CPU build from the list of its words."""
+    wl = _whitelist(np.random.default_rng(3))
+    path = tmp_path / "wl.txt.gz"
+    path.write_bytes(gzip.compress("".join(w + "\n" for w in wl).encode(), 1))
+    words = read_whitelist(str(path))
+    assert words is not None and len(words) == len(wl) and words.k == 16
+    got_k, got_v = txl.build_key_table(words, device=card)
+    want_k, want_v = txl.build_key_table(wl)
+    assert got_k.device.type == card.type
+    assert torch.equal(got_k.cpu(), want_k) and torch.equal(got_v.cpu(), want_v)
 
 
 def test_device_probe_takes_the_table_on_any_device(card, monkeypatch):

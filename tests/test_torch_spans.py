@@ -226,9 +226,9 @@ def _lr_argv(tmp, rng):
     return ["extract_lr_bc", "-r", str(tmp / "r.fastq"), "-o", str(tmp / "lr.tsv.gz")]
 
 
-def _alt_argv(tmp, rng):
-    wl = sorted({_dna(rng, 16) for _ in range(300)})
-    (tmp / "wl.txt.gz").write_bytes(gzip.compress("".join(b + "\n" for b in wl).encode()))
+def _alt_argv(tmp, rng, ending="\n"):
+    wl = sorted({_dna(rng, 16 + 1 - len(ending)) for _ in range(300)})
+    (tmp / "wl.txt.gz").write_bytes(gzip.compress("".join(b + ending for b in wl).encode()))
     rows = []
     for i in range(1000):
         if rng.random() < 0.1:
@@ -277,7 +277,7 @@ STAGES = {
         _alt_argv, {"SCTAG_PROBE": "device"},
         ["read_whitelist", "read_lr_tsv", "key_table", "probe", "rank", "write",
          "probe.upload", "key_table.encode", "key_table.build"],
-        ["key_table.entries"], {},
+        ["key_table.entries", "whitelist.fixed_stride", "whitelist.bytes"], {},
     ),
 }
 
@@ -299,6 +299,7 @@ def test_stage_records_what_the_benchmark_reads(tmp_path, stats_file, monkeypatc
     assert all(rec["counters"][k] > 0 for k in counters)
     if stage == "extract_sr_bc_from_lr":  # the key table is built where it is probed
         assert rec["counters"]["probe.uploads"] == rec["counters"]["probe.upload_bytes"] == 0
+        assert rec["counters"]["whitelist.fixed_stride"] == 1
     assert not set(rec["counters"]) & set(rec["timers_s"])
     names = {s["name"] for s in rec["spans"]}
     assert set(rec["timers_s"]) <= names
@@ -312,3 +313,18 @@ def test_stage_records_what_the_benchmark_reads(tmp_path, stats_file, monkeypatc
         assert got and all(t.startswith(thread) for t in got), (name, got)
     ctx = type("Ctx", (), {"stats": [rec], "units": 1e6})
     assert 0.0 <= gb_spans.untraced_pct(ctx) < 100.0
+
+
+@pytest.mark.parametrize("ending,fixed", [("\n", 1), ("\r\n", 0)], ids=["lf", "crlf"])
+def test_alt_whitelist_fixed_stride_counter(tmp_path, stats_file, monkeypatch, ending, fixed):
+    """15 bp words with \\r\\n endings fill the same 17-byte stride as 16 bp
+    words with \\n: the buffer read takes both, the key table refuses the \\r,
+    and the stage reads the lines again."""
+    monkeypatch.setenv("SCTAG_DEVICE", "cpu")
+    monkeypatch.setenv("SCTAG_PROGRESS", "0")
+    monkeypatch.setenv("SCTAG_PROBE", "device")
+    torch_main(_alt_argv(tmp_path, np.random.default_rng(6), ending))
+    (rec,) = _records(stats_file)
+    assert rec["counters"]["whitelist.fixed_stride"] == fixed
+    raw = gzip.decompress((tmp_path / "wl.txt.gz").read_bytes())
+    assert rec["counters"]["whitelist.bytes"] == len(raw) == 17 * raw.count(b"\n")
