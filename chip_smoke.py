@@ -805,7 +805,7 @@ def check_stage1_output(tmp: pathlib.Path) -> None:
     log(f"[check] card TSV == CPU TSV: {tsv['cuda'] == tsv['cpu']} ({n} rows)")
     if tsv["cuda"] != tsv["cpu"] or n != LR_CHECK_READS + len(extra):
         raise AssertionError("extract_lr_bc on the card differs from the CPU")
-    for dev in ("cuda", "cpu"):  # checkpointed: scan_adapters per 5,000 reads
+    for dev in ("cuda", "cpu"):  # checkpointed: the scan per 5,000-read batch
         ckpt = tmp / f"ckpt_lr_{dev}"
         out = tmp / f"lr_check_ckpt_{dev}.tsv.gz"
         with _env(SCTAG_CHECKPOINT_DIR=str(ckpt),
@@ -954,12 +954,20 @@ def check_sr_stage(tmp: pathlib.Path, n_alns: int = SR_ALNS) -> dict:
 
 def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
                     n_wl: int = ALT_WHITELIST, n_head: int = ALT_HEAD) -> dict:
-    """Phase 6b: extract_sr_bc_from_lr with the host probe and with the
-    device probe on the card; the device probe on the first ``n_head`` rows
-    under SCTAG_DEVICE=cpu against the card; a checkpointed run in 4
-    batches. All TSVs equal. Returns the walls and probe times."""
+    """Phase 6b: extract_sr_bc_from_lr on the CPU (the host probe) and on
+    the card (the device probe); the two probe functions called on the
+    first ``n_head`` rows: the device probe on the CPU and on the card
+    against the host probe; a checkpointed run on the card in 4 batches.
+    All TSVs equal, all probe arrays equal. Returns the walls and probe
+    times."""
+    import numpy as np
+    import torch
+
     import measure_reference
     from sctagger_tpu_torch import cli
+    from sctagger_tpu_torch.io.tsv import read_lr_segments_tsv
+    from sctagger_tpu_torch.io.whitelist import read_whitelist
+    from sctagger_tpu_torch.ops import exact_lookup as xl
     from sctagger_tpu_torch.stages import extract_sr_bc_from_lr
     from sctagger_tpu_torch.tools import gpu_line
 
@@ -977,9 +985,10 @@ def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
     stats_path = sub / "stats.jsonl"
     res = {}
 
-    def _run(tag: str, probe: str, rows: pathlib.Path, device=None) -> bytes:
+    def _run(tag: str, rows: pathlib.Path, device: str) -> bytes:
+        probe = "host" if device == "cpu" else "device"
         out = sub / f"{tag}.tsv.gz"
-        with _env(SCTAG_PROBE=probe, SCTAG_STATS=str(stats_path)):
+        with _env(SCTAG_STATS=str(stats_path)):
             t0 = time.perf_counter()
             extract_sr_bc_from_lr.run(cli.parse_args(
                 ["extract_sr_bc_from_lr", "-i", str(rows), "-wl", str(wl),
@@ -992,25 +1001,39 @@ def check_alt_stage(tmp: pathlib.Path, n_rows: int = ALT_ROWS,
             f"{st['timers_s']}; counters {st['counters']}")
         return gzip.decompress(out.read_bytes())
 
-    host = _run("host", "host", lr)
-    card = _run("device", "device", lr, "cuda")
-    with _env(SCTAG_DEVICE="cpu"):
-        head_cpu = _run("head_cpu", "device", head)
-    head_card = _run("head_card", "device", head, "cuda")
+    host = _run("host", lr, "cpu")
+    card = _run("device", lr, "cuda")
+    # the two probe functions on the first rows' segments (the stage's own
+    # parse): the device probe on the CPU and on the card, the host probe
+    _, _, locs, segs = read_lr_segments_tsv(str(head))
+    segs = segs.take([i for i, p in enumerate(locs) if p != "NA"])
+    words = read_whitelist(str(wl))
+    cpu, cuda = torch.device("cpu"), torch.device("cuda")
+    k = words.k
+    head_host = xl._probe_rows_host(segs, *xl.build_key_table(words), k)
+    head_cpu = xl._probe_segments_device(segs, *xl.build_key_table(words), k,
+                                         xl.PROBE_CHUNK, cpu)
+    head_card = xl._probe_segments_device(segs, *xl.build_key_table(words, device=cuda),
+                                          k, xl.PROBE_CHUNK, cuda)
+    head_same = all(np.array_equal(a, b) and np.array_equal(a, c)
+                    for a, b, c in zip(head_host, head_cpu, head_card))
     ckpt = sub / "ckpt"
     with _env(SCTAG_CHECKPOINT_DIR=str(ckpt),
               SCTAG_CHECKPOINT_BATCH=str(-(-n_rows // 4))):
-        checkpointed = _run("checkpointed", "device", lr, "cuda")
+        checkpointed = _run("checkpointed", lr, "cuda")
     parts = len(list(ckpt.glob("extract_sr_bc_from_lr_scan-*/part*.npz")))
     log(f"[alt] host == device: {host == card}; checkpointed ({parts} batches) "
-        f"== host: {checkpointed == host}; first {n_head:,} rows, CPU == card: "
-        f"{head_cpu == head_card}; {len(host.splitlines())} barcodes written; walls "
+        f"== host: {checkpointed == host}; first {n_head:,} rows, device probe on the "
+        f"CPU == on the card == host probe: {head_same} ({len(segs):,} segments, "
+        f"{int((head_host[0] == 1).sum()):,} single hits); {len(host.splitlines())} "
+        f"barcodes written; walls "
         f"host {res['host']['wall_s']:.3f}s vs device {res['device']['wall_s']:.3f}s "
         f"({gpu_line()})")
     if not host or host != card or host != checkpointed or parts != 4:
         raise AssertionError("extract_sr_bc_from_lr differs between probes or batches")
-    if not head_cpu or head_cpu != head_card:
-        raise AssertionError("the device probe on the CPU differs from the card")
+    if not head_same or not (head_host[0] == 1).any():
+        raise AssertionError("the device probe on the CPU, on the card and the host "
+                             "probe differ")
     return {**res, "lr": lr, "wl": wl, "want": host}
 
 
@@ -1250,12 +1273,12 @@ def multihost_path(tmp: pathlib.Path, match: dict, lr: dict, sr: dict,
          sr["want"], {}),
         ("extract_sr_bc_from_lr", "fs", ["extract_sr_bc_from_lr", "-i", alt["lr"],
                                          "-wl", alt["wl"]], ".tsv.gz", alt["want"],
-         {"SCTAG_PROBE": "device"}),
+         {}),
         ("extract_lr_bc", "gloo", ["extract_lr_bc", "-r", lr["fq"]], ".tsv.gz",
          want_lr, {}),
         ("extract_sr_bc_from_lr", "gloo", ["extract_sr_bc_from_lr", "-i", alt["lr"],
                                            "-wl", alt["wl"]], ".tsv.gz", alt["want"],
-         {"SCTAG_PROBE": "device"}),
+         {}),
     ]
     out = {}
     for stage, transport, argv, ext, want, env in runs:

@@ -48,7 +48,7 @@ Layout (each module mirrors its ``sctagger_tpu`` counterpart's name):
   ops/exact_prefilter.py  host dist<=1 prefilter (copied, JAX-free)
   ops/exact_lookup.py the alt stage's key table, host and device probes
   ops/topk_count.py   count_and_rank_host (copy)
-  models/adapter.py   scan_adapters(_stream): prefilter, kernel, fallbacks
+  models/adapter.py   scan_adapters_stream: prefilter, kernel, fallbacks
   models/matcher.py   match_segments: prefilter, chunk dispatch, ties
   stages/extract_lr_bc.py the extract_lr_bc stage
   stages/extract_sr_bc.py the extract_sr_bc stage (host C++)

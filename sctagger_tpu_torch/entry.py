@@ -17,8 +17,9 @@ prints that output.
 
 ``dryrun_multichip(n)`` runs the production stages end to end on an
 n-device grid (parallel/mesh.py): extract_lr_bc on a synthetic FASTQ, then
-match_trie and extract_sr_bc_from_lr (device probe) on its output, through
-``cli.main`` at 1 device and at n devices, with model-parallel 1 and 2. It
+match_trie and extract_sr_bc_from_lr (the grid probe at n devices) on its
+output, through ``cli.main`` at 1 device and at n devices, with
+model-parallel 1 and 2. It
 asserts that the grid path engaged over all n devices (mesh.STATS) and
 that every TSV is byte-identical to the one-device run; runs
 shard_match_full, shard_match_full_mp and shard_match_min against their
@@ -166,7 +167,7 @@ def dryrun_multichip(n_devices: int) -> dict:
     if virtual is None and len(pmesh.compute_devices()) < n_devices:
         virtual = str(n_devices)
     with _env(SCTAG_VIRTUAL_DEVICES=virtual, SCTAG_MAX_DEVICES=None,
-              SCTAG_MODEL_PARALLEL=None, SCTAG_PROBE=None,
+              SCTAG_MODEL_PARALLEL=None,
               SCTAG_CHECKPOINT_DIR=None, SCTAG_CHECKPOINT_BATCH=None):
         devs = pmesh.compute_devices()
         if len(devs) < n_devices:
@@ -187,8 +188,7 @@ def _dryrun(n_devices: int, tmp: pathlib.Path) -> dict:
 
     def run_pipeline_once(tag: str, max_devices: int, model_parallel: int):
         """extract_lr_bc -> (match_trie, extract_sr_bc_from_lr) through the
-        CLI; the alt stage runs its DEVICE probe so the grid probe is what
-        executes."""
+        CLI; at several devices the alt stage's probe is the grid probe."""
         pmesh.STATS.update(sharded_calls=0, devices=0)
         lr = str(tmp / f"lr_{tag}.tsv.gz")
         out = str(tmp / f"match_{tag}.tsv")
@@ -199,8 +199,7 @@ def _dryrun(n_devices: int, tmp: pathlib.Path) -> dict:
             cli_main(["match_trie", "-lr", lr, "-sr", sr, "-mr", "2", "-t", "1",
                       "-o", out])
             before_alt = pmesh.STATS["sharded_calls"]
-            with _env(SCTAG_PROBE="device"):
-                cli_main(["extract_sr_bc_from_lr", "-i", lr, "-wl", wl, "-o", alt])
+            cli_main(["extract_sr_bc_from_lr", "-i", lr, "-wl", wl, "-o", alt])
         return (gzip.open(lr, "rb").read(), pathlib.Path(out).read_bytes(),
                 gzip.open(alt, "rb").read(), dict(pmesh.STATS),
                 pmesh.STATS["sharded_calls"] - before_alt)

@@ -12,8 +12,8 @@ it reproduces edlib's observable surface exactly:
   tie d1 == d2   : read invalid (strand 'NA', d=-1, scTagger.py:182-183).
 
 One code path serves every device:
-  1. the host prefilter (native d<=1 scan, d<=2 opt-in; streaming path only)
-     decides the reads whose adapter distance it can prove;
+  1. the host prefilter (native d<=1 scan) decides the reads whose adapter
+     distance it can prove;
   2. the rest are sorted by length and cut into chunks for the adapter-scan
      kernel K6's SLOTS entry (ops/adapter_cuda.py: the CUDA kernel on the
      card, its plain version on the CPU);
@@ -31,6 +31,7 @@ batch over the grid's data axis; step 4 stays on the first device.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -132,30 +133,6 @@ def _to(a: np.ndarray, dev) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-def scan_adapters(
-    seqs, adapter: str, progress: bool = False, device=None
-) -> AdapterScanResult:
-    """One-shot stage-1 scan over all reads (a list of str or a SeqBuffer)
-    on ``device`` (runtime.resolve_device)."""
-    dev = resolve_device(device)
-    m = len(adapter)
-    a2 = rev_compl(adapter)
-    pat_stack = np.stack(
-        [encode_str(adapter, STRICT_TABLE), encode_str(a2, STRICT_TABLE)]
-    )
-    n = len(seqs)
-    lengths = seq_lengths(seqs)
-    acc = _Acc(n)
-    if m > MAX_PATTERN_LEN:  # multi-word: no kernel, exact mask path
-        peq2 = build_peq_multi_mw(pat_stack)
-        acc.mask_rids.append(np.arange(n, dtype=np.int64))
-    else:
-        peq2 = build_peq_multi(pat_stack)
-        with _KernelPath(seqs, peq2, m, dev, acc, progress) as kp:
-            kp.submit(np.arange(n, dtype=np.int64), lengths)
-    return _finalize_scan(seqs, lengths, peq2, m, a2, acc, dev, progress)
-
-
 class _KernelPath:
     """Reads through K6 in chunks of length-sorted reads: a worker thread
     packs the next chunks while this thread launches one and collects its
@@ -247,7 +224,7 @@ class _KernelPath:
 def _finalize_scan(
     seqs, lengths, peq2, m, a2, acc: _Acc, dev, progress
 ) -> AdapterScanResult:
-    """Shared scan tail (one-shot AND streaming paths): exact mask fallback
+    """The scan's tail: exact mask fallback
     (MASK for m <= 32, plain torch above), reverse-SHW start recovery, and
     flat (rid, loc) assembly."""
     n = len(seqs)
@@ -301,54 +278,53 @@ def _finalize_scan(
 
 
 def scan_adapters_stream(batches, adapter: str, progress: bool = False, device=None):
-    """Streaming stage-1 scan: overlap FASTQ ingest with device compute.
+    """The stage-1 scan, on ``device`` (runtime.resolve_device).
 
-    ``batches`` yields ``(names, SeqBuffer)`` in global read order (normally
-    ``io.fastq.read_fastqs_stream`` driven from a producer thread), with an
-    optional third element: the prefilter's raw scan of that batch (or a
-    future of it) from ``make_d0_scanner``. Returns
-    ``(rnames, chain, AdapterScanResult)`` where ``chain`` is the
-    ChainSeqBuffer holding every batch (the stage writer needs the read text
-    for segments).
+    ``batches`` yields ``(names, seqs)`` in global read order: the FASTQ
+    stream of ``io.fastq.read_fastqs_stream`` driven from a producer thread,
+    or reads held in memory as one batch (or a checkpoint's batch). ``seqs``
+    is a SeqBuffer, or a list of str that is joined into one. An optional
+    third element is the prefilter's raw scan of that batch (or a future of
+    it) from ``make_d0_scanner``. Returns ``(rnames, chain,
+    AdapterScanResult)`` where ``chain`` is the ChainSeqBuffer holding every
+    batch (the stage writer needs the read text for segments).
 
-    Reads the prefilter leaves open collect until CHUNK_READS of them wait;
-    they then go to the kernel path, sorted by length. Multi-word adapters
-    accumulate the chain and delegate to :func:`scan_adapters`.
+    The host prefilter decides what it can of each batch. The reads it
+    leaves open collect until CHUNK_READS of them wait; they then go to the
+    kernel path, sorted by length, or, for a multi-word adapter, to the
+    exact mask path.
     """
     from ..io.fastq import ChainSeqBuffer
 
     dev = resolve_device(device)
     m = len(adapter)
-    rnames: list[str] = []
-    chain = ChainSeqBuffer()
-    if m > MAX_PATTERN_LEN:
-        for item in batches:
-            rnames.extend(item[0])
-            chain.append(item[1])
-        return rnames, chain, scan_adapters(
-            chain, adapter, progress=progress, device=dev
-        )
-
     a2 = rev_compl(adapter)
-    pat_stack = np.stack(
-        [encode_str(adapter, STRICT_TABLE), encode_str(a2, STRICT_TABLE)]
-    )
-    peq2 = build_peq_multi(pat_stack)
+    pat_stack = _pattern_stack(adapter)
+    mw = m > MAX_PATTERN_LEN
+    peq2 = build_peq_multi_mw(pat_stack) if mw else build_peq_multi(pat_stack)
     # host prefilter (native/adapter_d1.cpp): a read whose adapter distance
     # is provably 0 or 1 on exactly one strand is decided host-side (equal
-    # minima on both strands => NA) and never reaches the kernel.
-    # SCTAG_ADAPTER_D0=0 disables it.
-    d0_scan = None
-    if os.environ.get("SCTAG_ADAPTER_D0", "1") == "1":
-        d0_scan = _make_d0_scanner(pat_stack, m)
+    # minima on both strands => NA) and never reaches the kernel
+    d0_scan = _make_d0_scanner(pat_stack, m)
 
+    rnames: list[str] = []
+    chain = ChainSeqBuffer()
     acc = _Acc(1024)
     pend_idx: list[np.ndarray] = []
     pend_lens: list[np.ndarray] = []
     pend_n = 0
-    with _KernelPath(chain, peq2, m, dev, acc, progress) as kp:
+    kp = None if mw else _KernelPath(chain, peq2, m, dev, acc, progress)
+
+    def _flush():
+        idx = np.concatenate(pend_idx)
+        if kp is None:  # multi-word: no kernel, the exact mask path
+            acc.mask_rids.append(idx)
+        else:
+            kp.submit(idx, np.concatenate(pend_lens))
+
+    with kp or contextlib.nullcontext():
         for item in batches:
-            names, sb = item[0], item[1]
+            names, sb = item[0], _seq_buffer(item[1])
             raw = item[2] if len(item) > 2 else None
             if hasattr(raw, "result"):
                 raw = raw.result()  # probe future (producer pipeline)
@@ -359,32 +335,48 @@ def scan_adapters_stream(batches, adapter: str, progress: bool = False, device=N
                 continue
             acc.grow(len(chain))
             lens_b = np.asarray(sb.lengths)
-            keep = None
+            sel = np.arange(len(sb))
             if d0_scan is not None:
                 with span("scan.d0probe"):
                     keep = d0_scan.apply(
-                        sb,
                         raw if raw is not None else d0_scan.raw(sb),
                         off, acc.strands, acc.dists, acc.loc_rids, acc.loc_vals,
                     )
-                if keep is not None and progress:
+                if progress:
                     print(
                         f"[scan] host prefilter: {int(len(sb) - keep.sum())}/"
                         f"{len(sb)} reads resolved", file=sys.stderr,
                     )
-            sel = np.flatnonzero(keep) if keep is not None else np.arange(len(sb))
+                sel = np.flatnonzero(keep)
             pend_idx.append(off + sel.astype(np.int64))
             pend_lens.append(lens_b[sel])
             pend_n += sel.size
             if pend_n >= CHUNK_READS:
-                kp.submit(np.concatenate(pend_idx), np.concatenate(pend_lens))
+                _flush()
                 pend_idx, pend_lens, pend_n = [], [], 0
         if pend_n:
-            kp.submit(np.concatenate(pend_idx), np.concatenate(pend_lens))
+            _flush()
 
     lengths = np.asarray(chain.lengths, np.int64)
     result = _finalize_scan(chain, lengths, peq2, m, a2, acc, dev, progress)
     return rnames, chain, result
+
+
+def _seq_buffer(seqs):
+    """``seqs`` as a SeqBuffer: as it is, or a list of str joined once."""
+    if getattr(seqs, "buf", None) is not None:
+        return seqs
+    from ..io.fastq import SeqBuffer
+
+    offs = np.zeros(len(seqs) + 1, np.int64)
+    np.cumsum(seq_lengths(seqs), out=offs[1:])
+    return SeqBuffer(np.frombuffer("".join(seqs).encode("latin-1"), np.uint8), offs)
+
+
+def _pattern_stack(adapter: str) -> np.ndarray:
+    """(2, m) STRICT codes of the adapter and its reverse complement."""
+    return np.stack([encode_str(adapter, STRICT_TABLE),
+                     encode_str(rev_compl(adapter), STRICT_TABLE)])
 
 
 def _mask_chunk(codes, sub_lens, peq2, m, sub, acc: _Acc):
@@ -495,10 +487,10 @@ def _recover_rev_starts(seqs, lengths, a2, m, acc: _Acc, dev):
 
 # ---------------------------------------------------------------------------
 # Host prefilter scanners (copied from sctagger_tpu/models/adapter.py; they
-# call the port's native library, native/adapter_d*.cpp). Counters: each tier counts only the reads
-# it decided (scan.d0/d1/d2_resolved_reads), and the reads the native d1/d2
-# scan gives up on (candidate overflow, flags != 0) count as
-# scan.prefilter_deferred_reads.
+# call the port's native library, native/adapter_d0.cpp and adapter_d1.cpp).
+# Counters: each tier counts only the reads it decided
+# (scan.d0/d1_resolved_reads), and the reads the native d1 scan gives up on
+# (candidate overflow, flags != 0) count as scan.prefilter_deferred_reads.
 # ---------------------------------------------------------------------------
 
 
@@ -507,13 +499,12 @@ class _D0Scanner:
     can run on the FASTQ-parse producer thread while the bytes are hot —
     the apply half (tiny numpy on hit subsets) stays on the consumer.
 
-    ``raw(sb)`` scans one SeqBuffer batch -> (fwd_cnt, rc_cnt, ends) or
-    None (no flat-buffer view). ``apply(sb, raw, off, ...)`` resolves every
-    read with an exact hit (writing strands/dists/locs exactly as the
-    kernel collect path would: fwd locs = exact ends ascending; rev locs =
-    (end - m + 1) - len - 1, the dist-0 SHW start being exact; both-strand
-    hits = the d1 == d2 tie => left NA) and returns the keep-mask of
-    still-unresolved reads. Calling the scanner does both."""
+    ``raw(sb)`` scans one SeqBuffer batch -> (fwd_cnt, rc_cnt, ends, offs).
+    ``apply(raw, off, ...)`` resolves every read with an exact hit (writing
+    strands/dists/locs exactly as the kernel collect path would: fwd locs =
+    exact ends ascending; rev locs = (end - m + 1) - len - 1, the dist-0 SHW
+    start being exact; both-strand hits = the d1 == d2 tie => left NA) and
+    returns the keep-mask of still-unresolved reads."""
 
     K = 8  # per-strand end slots; cnt > K defers to the device/mask path
 
@@ -528,12 +519,9 @@ class _D0Scanner:
         self.nthreads = os.cpu_count() or 2
 
     def raw(self, sb):
-        buf = getattr(sb, "buf", None)
-        offs = getattr(sb, "offs", None)
-        if buf is None or offs is None:
-            return None
+        buf = sb.buf
         n = len(sb)
-        offs = np.ascontiguousarray(offs, np.int64)
+        offs = np.ascontiguousarray(sb.offs, np.int64)
         fc = np.zeros(n, np.int32)
         rcnt = np.zeros(n, np.int32)
         ends = np.zeros((n, 2 * self.K), np.int64)
@@ -544,9 +532,7 @@ class _D0Scanner:
         )
         return fc, rcnt, ends, offs
 
-    def apply(self, sb, raw, off, strands, dists, loc_rids, loc_vals):
-        if raw is None:
-            return None
+    def apply(self, raw, off, strands, dists, loc_rids, loc_vals):
         fc, rcnt, ends, offs = raw
         K, m = self.K, self.m
         kar = np.arange(K)[None, :]
@@ -575,11 +561,6 @@ class _D0Scanner:
         resolved = both | fwd_ok | rev_ok
         count("scan.d0_resolved_reads", resolved.sum())
         return ~resolved
-
-    def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):
-        return self.apply(
-            sb, self.raw(sb), off, strands, dists, loc_rids, loc_vals
-        )
 
 
 class _D1Scanner:
@@ -614,12 +595,9 @@ class _D1Scanner:
         self.nthreads = os.cpu_count() or 2
 
     def raw(self, sb):
-        buf = getattr(sb, "buf", None)
-        offs = getattr(sb, "offs", None)
-        if buf is None or offs is None:
-            return None
+        buf = sb.buf
         n = len(sb)
-        offs = np.ascontiguousarray(offs, np.int64)
+        offs = np.ascontiguousarray(sb.offs, np.int64)
         f0 = np.zeros(n, np.int32)
         r0 = np.zeros(n, np.int32)
         f1 = np.zeros(n, np.int32)
@@ -636,9 +614,7 @@ class _D1Scanner:
         )
         return f0, r0, f1, r1, ends0, ends1, flags, offs
 
-    def apply(self, sb, raw, off, strands, dists, loc_rids, loc_vals):
-        if raw is None:
-            return None
+    def apply(self, raw, off, strands, dists, loc_rids, loc_vals):
         f0, r0, f1, r1, ends0, ends1, flags, offs = raw
         K, m = self.K, self.m
         kar = np.arange(K)[None, :]
@@ -692,138 +668,24 @@ class _D1Scanner:
         count("scan.prefilter_deferred_reads", (~ok).sum())
         return ~(res0 | res1)
 
-    def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):
-        return self.apply(
-            sb, self.raw(sb), off, strands, dists, loc_rids, loc_vals
-        )
-
-
-class _D2Scanner:
-    """Host dist<=2 adapter resolver (native/adapter_d2.cpp).
-
-    Same raw/apply contract as :class:`_D1Scanner` with a third tier: the
-    native scan emits EXACT per-strand end sets at distance 0, 1 AND 2
-    (3-part pigeonhole screen + banded verify), so the cascade extends one
-    level — equal cross-strand minima at any tier are the d1 == d2 tie =>
-    NA, a strictly smaller minimum resolves that strand with its full
-    edlib location set, and only reads whose minima are >= 3 on both
-    strands (or that overflow the slot/candidate budget) ship to the
-    device."""
-
-    K = 8
-
-    def __init__(self, lib, pat_stack: np.ndarray, m: int):
-        self.lib = lib
-        self.pat_fwd = np.ascontiguousarray(pat_stack[0], np.uint8)
-        self.pat_rc = np.ascontiguousarray(pat_stack[1], np.uint8)
-        self.m = m
-        self.table = np.ascontiguousarray(STRICT_TABLE)
-        self.nthreads = os.cpu_count() or 2
-
-    def raw(self, sb):
-        buf = getattr(sb, "buf", None)
-        offs = getattr(sb, "offs", None)
-        if buf is None or offs is None:
-            return None
-        n = len(sb)
-        offs = np.ascontiguousarray(offs, np.int64)
-        cnts = [np.zeros(n, np.int32) for _ in range(6)]
-        ends = [np.zeros((n, 2 * self.K), np.int64) for _ in range(3)]
-        flags = np.zeros(n, np.uint8)
-        self.lib.sctag_adapter_scan2(
-            buf.ctypes.data, offs.ctypes.data, n, self.table.ctypes.data,
-            self.pat_fwd.ctypes.data, self.pat_rc.ctypes.data, self.m,
-            self.K, self.nthreads,
-            *(c.ctypes.data for c in cnts),
-            *(e.ctypes.data for e in ends),
-            flags.ctypes.data,
-        )
-        return cnts, ends, flags, offs
-
-    def apply(self, sb, raw, off, strands, dists, loc_rids, loc_vals):
-        if raw is None:
-            return None
-        (f0, r0, f1, r1, f2, r2), ends, flags, offs = raw
-        K, m = self.K, self.m
-        kar = np.arange(K)[None, :]
-        fs = [f0, f1, f2]
-        rs = [r0, r1, r2]
-        # per-strand minimum over the resolved tiers (3 = "unknown, >= 3")
-        fmin = np.select([f0 > 0, f1 > 0, f2 > 0], [0, 1, 2], 3)
-        rmin = np.select([r0 > 0, r1 > 0, r2 > 0], [0, 1, 2], 3)
-        ok = flags == 0
-        resolved = np.zeros(len(f0), bool)
-        tie = ok & (fmin == rmin) & (fmin < 3)
-        resolved |= tie  # NA: strands/dists stay -1
-        lens_all = (offs[1:] - offs[:-1]).astype(np.int64)
-        for d in range(3):
-            fwd_w = ok & (fmin == d) & (rmin > d) & (fs[d] <= K)
-            fi = np.flatnonzero(fwd_w)
-            if fi.size:
-                g = off + fi
-                strands[g] = 0
-                dists[g] = d
-                cnts = fs[d][fi]
-                loc_rids.append(np.repeat(g, cnts))
-                loc_vals.append(ends[d][fi, :K][kar < cnts[:, None]])
-                resolved[fi] = True
-            rev_w = ok & (rmin == d) & (fmin > d) & (rs[d] <= K)
-            ri = np.flatnonzero(rev_w)
-            if ri.size:
-                g = off + ri
-                strands[g] = 1
-                dists[g] = d
-                cnts = rs[d][ri]
-                lens_r = lens_all[ri]
-                v = ends[d][ri, K:][kar < cnts[:, None]]
-                starts = v - (m - 1) if d == 0 else v  # d>0 slots = starts
-                loc_rids.append(np.repeat(g, cnts))
-                loc_vals.append(starts - np.repeat(lens_r, cnts) - 1)
-                resolved[ri] = True
-        dmin = np.minimum(fmin, rmin)
-        for d in range(3):
-            count(f"scan.d{d}_resolved_reads", (resolved & (dmin == d)).sum())
-        count("scan.prefilter_deferred_reads", (~ok).sum())
-        return ~resolved
-
-    def __call__(self, sb, off, strands, dists, loc_rids, loc_vals):
-        return self.apply(
-            sb, self.raw(sb), off, strands, dists, loc_rids, loc_vals
-        )
-
 
 def _make_d0_scanner(pat_stack: np.ndarray, m: int):
-    """Host prefilter scanner, or None if the adapter is not pure uppercase
-    ACGT (a junk char can never match exactly under the STRICT alphabet, so
-    the kernel path must handle such adapters — the packed keys cannot
-    represent them). Returns the d<=1 scanner by default
-    (SCTAG_ADAPTER_D1=0 drops back to d0 only; the d1 screen needs m >= 10
-    for a selective half-key); SCTAG_ADAPTER_D2=1 selects the d<=2 tier at
-    m >= 15 (its 3-part screen needs >= 5-char parts)."""
-    if (pat_stack > 3).any():
+    """The host prefilter scanner, picked from the adapter alone: None for
+    an adapter longer than one packed word or not pure uppercase ACGT (a
+    junk char can never match exactly under the STRICT alphabet, so the
+    kernel path must handle such adapters — the packed keys cannot
+    represent them); the d<=1 scanner at m >= 10 (its screen needs m >= 10
+    for a selective half-key); the exact d0 scanner below that."""
+    if m > MAX_PATTERN_LEN or (pat_stack > 3).any():
         return None
     from ..native.build import load
 
-    lib = load()
-    if os.environ.get("SCTAG_ADAPTER_D1", "1") != "1":
-        return _D0Scanner(lib, pat_stack, m)
-    if m >= 15 and os.environ.get("SCTAG_ADAPTER_D2", "0") == "1":
-        return _D2Scanner(lib, pat_stack, m)
-    if m >= 10:
-        return _D1Scanner(lib, pat_stack, m)
-    return _D0Scanner(lib, pat_stack, m)
+    return (_D1Scanner if m >= 10 else _D0Scanner)(load(), pat_stack, m)
 
 
 def make_d0_scanner(adapter: str):
-    """Producer-side host-prefilter scanner for stages/extract_lr_bc (None when
-    disabled by SCTAG_ADAPTER_D0=0, the adapter exceeds one packed word, or
-    it is not pure ACGT) — the SAME gating scan_adapters_stream applies, so
-    a producer-attached raw result is always consumed."""
-    m = len(adapter)
-    if m > 32 or os.environ.get("SCTAG_ADAPTER_D0", "1") != "1":
-        return None
-    pat_stack = np.stack([
-        encode_str(adapter, STRICT_TABLE),
-        encode_str(rev_compl(adapter), STRICT_TABLE),
-    ])
-    return _make_d0_scanner(pat_stack, m)
+    """The host prefilter scanner of ``adapter`` (or None), for a producer
+    thread to run its raw scan beside the FASTQ parse (stages/extract_lr_bc):
+    the one scan_adapters_stream applies, so a raw result attached to a
+    batch is always consumed."""
+    return _make_d0_scanner(_pattern_stack(adapter), len(adapter))

@@ -22,7 +22,6 @@ single-word).
 from __future__ import annotations
 
 import dataclasses
-import os
 import sys
 import threading
 from collections import deque
@@ -181,6 +180,20 @@ def _cat_codes(parts: list[np.ndarray]) -> np.ndarray:
     return out
 
 
+def prefilter_tiers(bl: int, lengths: np.ndarray) -> tuple[bool, bool]:
+    """(prefilter, d1): whether the host prefilter takes reads of these
+    ``lengths`` against ``bl``-bp patterns, and whether with its dist-1
+    tier. It takes single-word patterns when the longest read is at most
+    max(4 bl, 256); the dist-1 tier needs bl <= 31 (its bl + 1 keys fit 64
+    bits)."""
+    prefilter = (
+        bl <= MAX_PATTERN_LEN
+        and lengths.size > 0
+        and int(lengths.max()) <= max(4 * bl, 256)
+    )
+    return prefilter, prefilter and bl <= 31
+
+
 def match_segments(
     segments: Sequence[str],
     barcodes: Sequence[str],
@@ -222,19 +235,8 @@ def match_segments(
     # ---- host dist<=1 prefilter (ops/exact_prefilter.py) ------------------
     # Reads whose min distance is 0 or 1 have their complete tie set found on
     # the host, so only the min>1 remainder occupies the device. Output
-    # identical by construction; SCTAG_EXACT_PREFILTER=0 disables it,
-    # SCTAG_PREFILTER_D1=0 keeps only the dist-0 probe.
-    prefilter = (
-        os.environ.get("SCTAG_EXACT_PREFILTER", "1") == "1"
-        and not mw
-        and n > 0
-        and int(lengths.max(initial=0)) <= max(4 * bl, 256)
-    )
-    d1 = (
-        prefilter
-        and os.environ.get("SCTAG_PREFILTER_D1", "1") == "1"
-        and bl <= 31
-    )
+    # identical by construction.
+    prefilter, d1 = prefilter_tiers(bl, lengths)
     exact_pairs: list[tuple[np.ndarray, np.ndarray]] = []  # (rids, pids)
     # device_chunks_ragged: chunks swept by the ragged entry (K2); sweep_cells:
     # the read positions the sweep steps through, per pattern, and

@@ -32,7 +32,6 @@ _SRCS = [
     _DIR / "range_search.cpp",
     _DIR / "adapter_d0.cpp",
     _DIR / "adapter_d1.cpp",
-    _DIR / "adapter_d2.cpp",
     _DIR / "gz_inflate.cpp",
 ]
 _HDRS = [_DIR / "adapter_verify.h"]  # hashed, not compiled directly
@@ -289,28 +288,6 @@ def _set_signatures(lib) -> None:
         ctypes.c_void_p,   # ends0 (int64*, n x 2*kmax)
         ctypes.c_void_p,   # ends1 (int64*, n x 2*kmax)
         ctypes.c_void_p,   # flags (uint8*)
-    ]
-    lib.sctag_adapter_scan2.restype = None
-    lib.sctag_adapter_scan2.argtypes = [
-        ctypes.c_void_p,   # buf
-        ctypes.c_void_p,   # offs
-        ctypes.c_int64,    # n
-        ctypes.c_void_p,   # table
-        ctypes.c_void_p,   # pat_fwd
-        ctypes.c_void_p,   # pat_rc
-        ctypes.c_int,      # m
-        ctypes.c_int,      # kmax
-        ctypes.c_int,      # nthreads
-        ctypes.c_void_p,   # f0
-        ctypes.c_void_p,   # r0
-        ctypes.c_void_p,   # f1
-        ctypes.c_void_p,   # r1
-        ctypes.c_void_p,   # f2
-        ctypes.c_void_p,   # r2
-        ctypes.c_void_p,   # ends0
-        ctypes.c_void_p,   # ends1
-        ctypes.c_void_p,   # ends2
-        ctypes.c_void_p,   # flags
     ]
     lib.sctag_inflate_file.restype = ctypes.c_int
     lib.sctag_inflate_file.argtypes = [

@@ -18,25 +18,24 @@ probe runs on: the whitelist's bytes as the stage read them (one buffer,
 io/whitelist.py) or one host join of its words, then the 2-bit codes, the
 fwd and rc keys, a stable sort and keep-last on that device. Keys and
 values are int64 tensors (torch's uint32 support is thin); the stage
-builds them on the card for the device probe, which takes them where they
-are (no upload), and on the CPU for the host probe, which reads them as
-numpy views.
+builds them on its device: on the card for the device probe, which takes
+them where they are (no upload), and on the CPU for the host probe, which
+reads them as numpy views.
 
-Two probes, chosen by ``SCTAG_PROBE``:
-  * ``host`` (default): the native threaded hash probe over the raw segment
-    bytes (native/exact_probe.cpp);
-  * ``device``: 2-bit-packed rows up, a binary search of every window in the
-    sorted key table (``torch.searchsorted``) and the per-row reduction on
-    the device, (count, single value) per row down. Rows with in-sequence
-    non-ACGT bytes cannot ride the 2-bit pack; they get length 0 on the
-    device and go through the host probe (the table copied down for them
-    alone).
+Two probes; ``probe_segments`` takes the one that fits its device:
+  * the device probe, on a card or on a grid of several devices
+    (parallel/mesh.py): 2-bit-packed rows up, a binary search of every
+    window in the sorted key table (``torch.searchsorted``) and the per-row
+    reduction on the device, (count, single value) per row down. Rows with
+    in-sequence non-ACGT bytes cannot ride the 2-bit pack; they get length
+    0 on the device and go through the host probe (the table copied down
+    for them alone);
+  * the host probe, on one CPU device: the native threaded hash probe over
+    the raw segment bytes (native/exact_probe.cpp).
 Neither probe falls back to the other: a failure raises.
 """
 
 from __future__ import annotations
-
-import os
 
 import numpy as np
 import torch
@@ -51,6 +50,7 @@ from ..runtime import resolve_device
 from ..utils import round_up
 
 PROBE_CHUNK = 65536  # rows per device probe step, at most
+HOST_PROBE_THREADS = 2  # native threads of the host probe
 _ROW_BUDGET = 1 << 23  # rows x padded length per device step (int64 windows)
 
 
@@ -152,18 +152,16 @@ def probe_segments(segments, sorted_keys: torch.Tensor, values: torch.Tensor,
     ``sorted_keys``, ``values``: build_key_table's tensors, on any device.
     Hits are counted over every k-window. Returns (counts (N,), single_val
     (N,)) int64 numpy arrays, single_val meaningful only where counts == 1.
-    The probe is ``SCTAG_PROBE``'s (``host``, the default, or ``device``;
-    module note); the device probe runs on ``device``
-    (runtime.resolve_device).
+    The probe follows ``device`` (runtime.resolve_device; module note): the
+    device probe on a card or a grid of several devices, the host probe on
+    one CPU device.
     """
-    probe = os.environ.get("SCTAG_PROBE", "host")
-    if probe == "host":
-        return _probe_rows_host(segments, sorted_keys, values, k)
-    if probe != "device":
-        raise ValueError(f"SCTAG_PROBE must be 'host' or 'device', got {probe!r}")
-    return _probe_segments_device(
-        segments, sorted_keys, values, k, chunk, resolve_device(device)
-    )
+    from ..parallel.mesh import local_mesh
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" or local_mesh(model_parallel=1, device=dev) is not None:
+        return _probe_segments_device(segments, sorted_keys, values, k, chunk, dev)
+    return _probe_rows_host(segments, sorted_keys, values, k)
 
 
 def _probe_segments_device(segments, sorted_keys, values, k, chunk, dev):
@@ -267,10 +265,9 @@ def _probe_rows_host(segments, sorted_keys: torch.Tensor, values: torch.Tensor,
     offs = np.ascontiguousarray(offs, np.int64)
     counts = np.zeros(n, np.int64)
     single = np.zeros(n, np.int64)
-    nthreads = int(os.environ.get("SCTAG_PROBE_THREADS", "2") or 2)
     lib.sctag_probe_rows(
         buf.ctypes.data, offs.ctypes.data, n,
-        tkeys.ctypes.data, tvals.ctypes.data, size, k, nthreads,
+        tkeys.ctypes.data, tvals.ctypes.data, size, k, HOST_PROBE_THREADS,
         counts.ctypes.data, single.ctypes.data,
     )
     return counts, single

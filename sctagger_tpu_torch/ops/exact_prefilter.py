@@ -52,11 +52,9 @@ import numpy as np
 
 from ..observability import count
 
-# native probe threads: both host cores (the probe runs while the device
+# native probe threads: every host core (the probe runs while the device
 # crunches the previous chunk; numpy phases release the GIL anyway)
-_N_THREADS = int(os.environ.get("SCTAG_PROBE_THREADS", "0")) or (
-    os.cpu_count() or 2
-)
+_N_THREADS = os.cpu_count() or 2
 
 
 @dataclasses.dataclass

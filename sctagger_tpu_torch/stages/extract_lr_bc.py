@@ -9,16 +9,22 @@ Output row (scTagger.py:317-320): rname \t dist \t loc \t seq[s:e or None]
 with Python slicing semantics (negative indices, e==0 -> slice to end), and
 dist=-1 / loc='NA' / empty segment for invalid reads.
 
-Optional batch-granular checkpointing: with SCTAG_CHECKPOINT_DIR set, the
-reads are scanned in SCTAG_CHECKPOINT_BATCH-read batches whose scan results
-persist as npz parts (pipeline/checkpoint); range detection, filtering and
-the write re-run from the concatenated parts, so a re-run scans only the
-missing batches and writes the same bytes.
+A single-host run streams: the FASTQ parse and the host prefilter's raw
+scan run on a producer thread beside the scan (_run_stream).
 
-With --n-hosts > 1 each host scans a contiguous read shard (_run_multi: no
-streaming, no checkpointing, no plot); the adapter-location histograms merge
-across hosts so every host detects the same ranges, and host 0 merges the
-hosts' rows into the one gz TSV.
+Optional batch-granular checkpointing: with SCTAG_CHECKPOINT_DIR set, the
+FASTQ is read whole and scanned in SCTAG_CHECKPOINT_BATCH-read batches whose
+scan results persist as npz parts (pipeline/checkpoint); range detection,
+filtering and the write re-run from the concatenated parts, so a re-run
+scans only the missing batches and writes the same bytes.
+
+With --n-hosts > 1 each host scans a contiguous read shard as one batch
+(_run_multi: no checkpointing, no plot); the adapter-location histograms
+merge across hosts so every host detects the same ranges, and host 0 merges
+the hosts' rows into the one gz TSV.
+
+Every route scans through models/adapter.scan_adapters_stream, the host
+prefilter included.
 """
 
 from __future__ import annotations
@@ -44,7 +50,6 @@ from ..io.tsv import open_out, write_lr_tsv_gz_native
 from ..models.adapter import (
     AdapterScanResult,
     make_d0_scanner,
-    scan_adapters,
     scan_adapters_stream,
 )
 from ..observability import progress_bar, span, stage_scope
@@ -92,8 +97,8 @@ def _detect_ranges_dist(group, locs_f: np.ndarray, locs_r: np.ndarray):
 
 
 def _run_multi(args, stats, dev, n_hosts: int) -> None:
-    """This host's contiguous shard of the reads: one-shot scan, then the
-    shared tail with the cross-host range detection and part merge."""
+    """This host's contiguous shard of the reads, scanned as one batch, then
+    the shared tail with the cross-host range detection and part merge."""
     assert args.plotfile is None, "plotting is single-host only"
     if os.environ.get("SCTAG_CHECKPOINT_DIR"):
         # shard-dependent batch contents would collide on one job key
@@ -113,7 +118,9 @@ def _run_multi(args, stats, dev, n_hosts: int) -> None:
         file=sys.stderr,
     )
     with stats.timer("adapter_scan"):
-        scan = scan_adapters(seqs, args.short_read_adapter, progress=True, device=dev)
+        scan = scan_adapters_stream(
+            [(rnames, seqs)], args.short_read_adapter, progress=True, device=dev
+        )[2]
     stats.count("reads", len(seqs))
     _emit(args, stats, rnames, seqs, scan, group)
 
@@ -217,9 +224,7 @@ def _run(args, stats, dev) -> None:
     if args.outfile is not None:
         # fail fast on an unwritable output path BEFORE the expensive scan
         open(args.outfile, "wb").close()
-    if not store.enabled and os.environ.get("SCTAG_STREAM", "1") != "0":
-        rnames, seqs, scan = _run_stream(args, stats, dev)
-    else:
+    if store.enabled:
         with stats.timer("read_fastq"):
             rnames, seqs = read_fastqs(args.reads, args.gzipped)
         print(
@@ -227,12 +232,9 @@ def _run(args, stats, dev) -> None:
             file=sys.stderr,
         )
         with stats.timer("adapter_scan"):
-            if store.enabled:
-                scan = _scan_checkpointed(args, stats, dev, store, batch, seqs)
-            else:
-                scan = scan_adapters(
-                    seqs, args.short_read_adapter, progress=True, device=dev
-                )
+            scan = _scan_checkpointed(args, stats, dev, store, batch, seqs)
+    else:
+        rnames, seqs, scan = _run_stream(args, stats, dev)
     stats.count("reads", len(seqs))
     _emit(args, stats, rnames, seqs, scan)
 
@@ -242,8 +244,8 @@ _SCAN_FIELDS = {"strands": np.int8, "dists": np.int32, "flat_locs": np.int64,
 
 
 def _scan_checkpointed(args, stats, dev, store, batch: int, seqs):
-    """scan_adapters per ``batch`` reads, each batch's result an npz part
-    (the resume unit; a read's scan does not depend on its batch), the parts
+    """The scan of each ``batch`` reads, each batch's result an npz part (the
+    resume unit; a read's scan does not depend on its batch), the parts
     concatenated in read order."""
     parts = []
     for bi, (s, e) in enumerate(batch_iter(len(seqs), batch)):
@@ -251,9 +253,9 @@ def _scan_checkpointed(args, stats, dev, store, batch: int, seqs):
             parts.append(store.load_arrays(bi))
             stats.count("batches_skipped")
             continue
-        r = scan_adapters(
-            seqs[s:e], args.short_read_adapter, progress=True, device=dev
-        )
+        r = scan_adapters_stream(
+            [((), seqs[s:e])], args.short_read_adapter, progress=True, device=dev
+        )[2]
         d = {name: getattr(r, name) for name in _SCAN_FIELDS}
         store.save_arrays(bi, **d)
         parts.append(d)

@@ -7,8 +7,8 @@ reference strips exactly one trailing char per line, `l[:-1]` — reproduced,
 so a file without a trailing newline loses its last char; a file of
 fixed-stride lines is read as one buffer, no string per line) and build its
 key table -> exact-match every segment window against fwd+rc of every
-whitelist barcode (ops/exact_lookup.py; host probe by default,
-``SCTAG_PROBE=device`` on the card) -> drop ambiguous reads (>1 hit) ->
+whitelist barcode (ops/exact_lookup.py; the device probe on the card, the
+host probe on the CPU) -> drop ambiguous reads (>1 hit) ->
 count by abs(index), fwd/rc merged -> sort by count desc (ties keep
 first-increment order) -> cap, chunked threshold cutoff -> TSV
 `barcode \\t count` (gzipped when -o given).
@@ -44,12 +44,10 @@ from ..utils import batch_iter, full_fast
 
 
 def run(args, device=None) -> None:
-    """Run the stage. The device probe (``SCTAG_PROBE=device``) runs on
-    ``device`` (runtime.resolve_device, resolved before any input is read);
-    the default host probe needs no device."""
-    dev = None
-    if os.environ.get("SCTAG_PROBE", "host") == "device":
-        dev = resolve_device(device)
+    """Run the stage on ``device`` (runtime.resolve_device, resolved before
+    any input is read): the key table is built there and the probe follows
+    it (ops/exact_lookup.probe_segments)."""
+    dev = resolve_device(device)
     with stage_scope("extract_sr_bc_from_lr") as stats:
         _run(args, stats, dev)
 
@@ -140,7 +138,7 @@ def _whitelist(path: str, stats, dev):
         with stats.timer("key_table"):
             try:
                 # rc keys packed inside build_key_table (no rc strings), on
-                # the device probe's device, or the CPU for the host probe
+                # the stage's device
                 table = build_key_table(barcodes, device=dev)
             except ValueError:
                 print("whitelist not uniform ACGT; using host fallback", file=sys.stderr)

@@ -25,7 +25,7 @@ def port_env(**extra) -> dict:
     env["SCTAG_DEVICE"] = "cpu"
     env["SCTAG_SYNC_TIMEOUT"] = "180"
     for k in ("SCTAG_CHECKPOINT_DIR", "SCTAG_VIRTUAL_DEVICES", "SCTAG_MAX_DEVICES",
-              "SCTAG_MODEL_PARALLEL", "SCTAG_PROBE"):
+              "SCTAG_MODEL_PARALLEL"):
         env.pop(k, None)
     env.update(extra)
     return env

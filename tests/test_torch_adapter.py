@@ -4,7 +4,8 @@ JAX package's (sctagger_tpu.models.adapter) on the CPU.
 References: the JAX ``scan_adapters`` (its CPU mask path, every read through
 ``_hw_block``) and ``scan_adapters_stream(..., force_kernel=True)`` (the
 Pallas kernel in interpret mode behind the host prefilter). The port runs
-one path everywhere: prefilter, the kernel's plain version, mask fallback.
+one path everywhere, through its one entry point scan_adapters_stream:
+prefilter, the kernel's plain version, mask fallback.
 Compared: strands, dists, flat_locs and loc_counts, exactly (integers).
 Reads are 50-400 bp, as in tests/test_stream_scan.py, to keep interpret
 mode fast."""
@@ -25,6 +26,7 @@ torch.set_num_threads(1)
 ADAPTER = "CTACACGACGCTCTTCCGATCT"
 ADAPTER_45 = ADAPTER + "AGTCAGGTACTTGCAGGCTAGGCTG"  # multi-word: mask path
 ADAPTER_N = "CTACACGACGCTNTTCCGATCT"  # no prefilter; N matches nothing
+ADAPTER_9 = ADAPTER[:9]  # below 10 bp: the exact d0 prefilter
 FIELDS = ("strands", "dists", "flat_locs", "loc_counts")
 
 
@@ -87,6 +89,11 @@ def _stream_items(parts):
     return iter([([f"b{k}r{i}" for i in range(len(p))], _sb(p)) for k, p in enumerate(parts)])
 
 
+def _scan(seqs, adapter):
+    """The port's scan of reads held in memory: one batch."""
+    return port.scan_adapters_stream([((), seqs)], adapter, device="cpu")[2]
+
+
 def _assert_same(got, want):
     for f in FIELDS:
         np.testing.assert_array_equal(getattr(got, f), getattr(want, f), err_msg=f)
@@ -109,40 +116,43 @@ def fixture_22():
 def test_scan_adapters_matches_jax(adapter):
     reads = [r for p in _batches(7, adapter) for r in p]
     want = jax_adapter.scan_adapters(reads, adapter)
-    _assert_same(port.scan_adapters(reads, adapter, device="cpu"), want)
-    _assert_same(port.scan_adapters(_sb(reads), adapter, device="cpu"), want)
+    _assert_same(_scan(reads, adapter), want)
+    _assert_same(_scan(_sb(reads), adapter), want)
 
 
-@pytest.mark.parametrize(
-    "env",
-    [
-        {"SCTAG_ADAPTER_D0": "1", "SCTAG_ADAPTER_D1": "1", "SCTAG_ADAPTER_D2": "0"},
-        {"SCTAG_ADAPTER_D0": "1", "SCTAG_ADAPTER_D1": "0"},
-        {"SCTAG_ADAPTER_D0": "1", "SCTAG_ADAPTER_D1": "1", "SCTAG_ADAPTER_D2": "1"},
-        {"SCTAG_ADAPTER_D0": "0"},
-    ],
-    ids=["d1", "d0", "d2", "off"],
-)
-def test_stream_matches_jax(fixture_22, monkeypatch, env):
+@pytest.mark.parametrize("tier", ["d1", "d0", "off"])
+def test_stream_matches_jax(fixture_22, monkeypatch, tier):
+    """The scanner follows the adapter: d1 at 22 bp, d0 at 9 bp; ``off``
+    takes the prefilter away, so every read goes to the kernel."""
     parts, reads, want = fixture_22
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
+    adapter = ADAPTER
+    if tier == "d0":
+        adapter = ADAPTER_9
+        parts = _batches(31, adapter)
+        reads = [r for p in parts for r in p]
+        want = jax_adapter.scan_adapters(reads, adapter)
+    elif tier == "off":
+        monkeypatch.setattr(port, "_make_d0_scanner", lambda pat, m: None)
+    scanner = port.make_d0_scanner(adapter)
+    assert type(scanner).__name__ == {"d1": "_D1Scanner", "d0": "_D0Scanner",
+                                      "off": "NoneType"}[tier]
     with stage_scope("scan") as st:
         names, chain, got = port.scan_adapters_stream(
-            _stream_items(parts), ADAPTER, device="cpu"
+            _stream_items(parts), adapter, device="cpu"
         )
     counts = st.counters
     assert len(names) == len(reads) and list(chain) == reads
     _assert_same(got, want)
     kernel = counts.get("scan.kernel_reads", 0)
-    resolved = sum(counts.get(f"scan.d{d}_resolved_reads", 0) for d in range(3))
+    resolved = sum(counts.get(f"scan.d{d}_resolved_reads", 0) for d in range(2))
     # every non-empty batch read is decided by the prefilter or the kernel
     assert resolved + kernel == len(reads)
     # junk and > SLOTS_K ends: the MASK entry (its plain version here), no
     # read through the plain-torch mask path
     assert kernel > 0 and counts.get("scan.mask_kernel_reads", 0) > 0
     assert counts.get("scan.mask_reads", 0) == 0
-    assert (resolved > 0) == (env["SCTAG_ADAPTER_D0"] == "1")
+    assert (resolved > 0) == (tier != "off")
+    assert (counts.get("scan.d1_resolved_reads", 0) > 0) == (tier == "d1")
 
 
 @pytest.mark.parametrize("adapter", [ADAPTER_45, ADAPTER_N], ids=["45bp", "N"])
@@ -176,42 +186,35 @@ def _true_min(reads, adapter):
     return np.asarray(d).min(axis=1)
 
 
-@pytest.mark.parametrize("tier", [1, 2])
-def test_prefilter_counts_each_tier_once(monkeypatch, tier):
+@pytest.mark.parametrize("tier", [1])
+def test_prefilter_counts_each_tier_once(tier):
     """Each tier counts only the reads it decided: scan.d<t>_resolved_reads
     never exceeds the reads whose true min distance is t, and the tiers sum
     to the reads the prefilter took off the kernel path."""
-    monkeypatch.setenv("SCTAG_ADAPTER_D0", "1")
-    monkeypatch.setenv("SCTAG_ADAPTER_D1", "1")
-    monkeypatch.setenv("SCTAG_ADAPTER_D2", "1" if tier == 2 else "0")
     rng = np.random.default_rng(40 + tier)
     reads = _gen_reads(rng, 120, ADAPTER)
     with stage_scope("scan") as st:
         port.scan_adapters_stream(_stream_items([reads]), ADAPTER, device="cpu")
     true_min = _true_min(reads, ADAPTER)
-    counts = [st.counters.get(f"scan.d{d}_resolved_reads", 0) for d in range(3)]
-    for d in range(3):
+    counts = [st.counters.get(f"scan.d{d}_resolved_reads", 0) for d in range(2)]
+    for d in range(2):
         assert counts[d] <= (true_min == d).sum(), (d, counts)
     assert counts[1] > 0 and counts[0] < sum(counts)
-    assert (counts[2] > 0) == (tier == 2)
     assert sum(counts) + st.counters["scan.kernel_reads"] == len(reads)
 
 
-@pytest.mark.parametrize("tier", [1, 2])
-def test_prefilter_deferred_reads_counted(monkeypatch, tier):
-    """Reads the native d1/d2 scan defers (candidate overflow, flags != 0)
+@pytest.mark.parametrize("tier", [1])
+def test_prefilter_deferred_reads_counted(tier):
+    """Reads the native d1 scan defers (candidate overflow, flags != 0)
     count as scan.prefilter_deferred_reads, and still come out exact."""
-    monkeypatch.setenv("SCTAG_ADAPTER_D0", "1")
-    monkeypatch.setenv("SCTAG_ADAPTER_D1", "1")
-    monkeypatch.setenv("SCTAG_ADAPTER_D2", "1" if tier == 2 else "0")
     rng = np.random.default_rng(60 + tier)
-    part = ADAPTER[: 11 if tier == 1 else 8]  # one screen key, many times
+    part = ADAPTER[:11]  # one screen key, many times
     reads = _gen_reads(rng, 30, ADAPTER)
     reads += [(part + "T") * 300, "GG" + (part + "A") * 250 + ADAPTER]
     pat = np.stack([encode_str(ADAPTER, STRICT_TABLE),
                     encode_str(rev_compl(ADAPTER), STRICT_TABLE)])
     scanner = port._make_d0_scanner(pat, len(ADAPTER))
-    assert type(scanner).__name__ == ("_D1Scanner" if tier == 1 else "_D2Scanner")
+    assert type(scanner).__name__ == "_D1Scanner"
     flags = scanner.raw(_sb(reads))[-2]
     assert flags.sum() >= 2
     with stage_scope("scan") as st:
@@ -222,7 +225,8 @@ def test_prefilter_deferred_reads_counted(monkeypatch, tier):
 
 def test_chunks_follow_the_byte_budget(monkeypatch):
     """Reads are sorted by length and cut into chunks within the byte
-    budget; the result does not depend on the cut."""
+    budget; the result does not depend on the cut. (No prefilter: every read
+    goes to the kernel.)"""
     rng = np.random.default_rng(3)
     reads = _gen_reads(rng, 50, ADAPTER)
     want = jax_adapter.scan_adapters(reads, ADAPTER)
@@ -235,7 +239,8 @@ def test_chunks_follow_the_byte_budget(monkeypatch):
 
     monkeypatch.setattr(port, "adapter_scan", spy)
     monkeypatch.setattr(port, "CHUNK_READS", 16)
-    _assert_same(port.scan_adapters(reads, ADAPTER, device="cpu"), want)
+    monkeypatch.setattr(port, "_make_d0_scanner", lambda pat, m: None)
+    _assert_same(_scan(reads, ADAPTER), want)
     assert [t[0] for t, _ in launches] == [16, 16, 16, 2]
     lens = torch.cat([ln for _, ln in launches])
     assert torch.equal(lens, lens.sort().values)  # length-sorted chunks

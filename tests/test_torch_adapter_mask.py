@@ -133,14 +133,18 @@ def _fastq(path, rng, adapter):
 
 @pytest.mark.parametrize("stream", ["1", "0"], ids=["stream", "one-shot"])
 def test_extract_lr_bc_routes_through_mask(tmp_path, monkeypatch, stream):
+    """The streamed route, and (``one-shot``) the checkpointed one, which
+    reads the FASTQ whole."""
     monkeypatch.setenv("SCTAG_DEVICE", "cpu")
-    monkeypatch.setenv("SCTAG_STREAM", stream)
+    if stream == "0":
+        monkeypatch.setenv("SCTAG_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
     fq = tmp_path / "r.fastq"
     _fastq(fq, np.random.default_rng(9), ADAPTERS[22])
     stats = tmp_path / "stats.jsonl"
     monkeypatch.setenv("SCTAG_STATS", str(stats))
     torch_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "t.tsv.gz")])
     monkeypatch.delenv("SCTAG_STATS")
+    monkeypatch.delenv("SCTAG_CHECKPOINT_DIR", raising=False)  # JAX: its own scan
     counts = json.loads(stats.read_text())["counters"]  # the stage_scope's record
     assert counts.get("scan.mask_kernel_reads", 0) > 0
     assert counts.get("scan.mask_reads", 0) == 0

@@ -115,7 +115,7 @@ def _bam_inputs(tmp, rng):
 STAGES = {
     "match_trie": (_match_trie_inputs, match_trie, "match_segments",
                    "match_trie", "tsv"),
-    "extract_lr_bc": (_extract_lr_bc_inputs, extract_lr_bc, "scan_adapters",
+    "extract_lr_bc": (_extract_lr_bc_inputs, extract_lr_bc, "scan_adapters_stream",
                       "extract_lr_bc_scan", "npz"),
     "extract_sr_bc_from_lr": (_alt_inputs, extract_sr_bc_from_lr, "probe_segments",
                               "extract_sr_bc_from_lr_scan", "npz"),

@@ -19,8 +19,7 @@ torch.set_num_threads(1)
 @pytest.fixture(autouse=True)
 def _on_cpu(monkeypatch):
     monkeypatch.setenv("SCTAG_DEVICE", "cpu")
-    for k in ("SCTAG_CHECKPOINT_DIR", "SCTAG_MAX_DEVICES", "SCTAG_MODEL_PARALLEL",
-              "SCTAG_PROBE"):
+    for k in ("SCTAG_CHECKPOINT_DIR", "SCTAG_MAX_DEVICES", "SCTAG_MODEL_PARALLEL"):
         monkeypatch.delenv(k, raising=False)
 
 

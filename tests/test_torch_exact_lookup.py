@@ -139,23 +139,21 @@ def test_device_probe_equals_jax_probe_rows_packed(k):
 
 
 @pytest.mark.parametrize("k", [8, 12, 16])
-def test_probe_segments_host_equals_device(k, monkeypatch):
+def test_probe_segments_host_equals_device(k):
     rng = np.random.default_rng(200 + k)
     wl = _whitelist(rng, k)
     segs = _segments(rng, wl, k, n=700)
     sk, vv = txl.build_key_table(wl)
     want = jxl._probe_rows_host(segs, *jxl.build_key_table(wl), k)
-    monkeypatch.setenv("SCTAG_PROBE", "host")
-    host = txl.probe_segments(segs, sk, vv, k)
-    monkeypatch.setenv("SCTAG_PROBE", "device")
-    dev = txl.probe_segments(segs, sk, vv, k, chunk=128, device="cpu")
+    host = txl._probe_rows_host(segs, sk, vv, k)
+    dev = txl._probe_segments_device(segs, sk, vv, k, 128, torch.device("cpu"))
     for a, b, c in zip(host, dev, want):
         np.testing.assert_array_equal(a, c)
         np.testing.assert_array_equal(b, c)
     assert (host[0] > 1).any() and (host[0] == 1).any()
 
 
-def test_probe_segments_device_on_a_seqbuffer(tmp_path, monkeypatch):
+def test_probe_segments_device_on_a_seqbuffer(tmp_path):
     """The device probe on the LR reader's SeqBuffer (native 2-bit pack,
     junk flags) == the host probe on the same rows."""
     from sctagger_tpu_torch.io.tsv import read_lr_segments_tsv
@@ -168,8 +166,7 @@ def test_probe_segments_device_on_a_seqbuffer(tmp_path, monkeypatch):
     buf = read_lr_segments_tsv(str(lr))[3]
     assert hasattr(buf, "encode_packed")
     sk, vv = txl.build_key_table(wl)
-    monkeypatch.setenv("SCTAG_PROBE", "device")
-    got = txl.probe_segments(buf, sk, vv, 16, chunk=64, device="cpu")
+    got = txl._probe_segments_device(buf, sk, vv, 16, 64, torch.device("cpu"))
     want = jxl._probe_rows_host(segs, *jxl.build_key_table(wl), 16)
     for a, b in zip(got, want):
         np.testing.assert_array_equal(a, b)
@@ -203,7 +200,8 @@ def test_exotic_whitelists_go_to_host_dict_fallback(words):
 def test_failing_host_probe_raises(monkeypatch):
     """No hidden fallback: a host probe that fails raises, in the host probe
     and in the device probe's junk-row re-probe, and never moves to the
-    device."""
+    device. The probe follows the device: the host probe on one CPU device,
+    the device probe on a grid of two."""
     from sctagger_tpu_torch.native import build as native_build
 
     rng = np.random.default_rng(11)
@@ -219,14 +217,20 @@ def test_failing_host_probe_raises(monkeypatch):
 
     monkeypatch.setattr(native_build, "load", _no_lib)
     monkeypatch.setattr(txl, "_probe_segments_device", _no_device)
-    monkeypatch.setenv("SCTAG_PROBE", "host")
+    monkeypatch.delenv("SCTAG_VIRTUAL_DEVICES", raising=False)
     with pytest.raises(OSError, match="unavailable"):
-        txl.probe_segments(segs, sk, vv, 16)
+        txl.probe_segments(segs, sk, vv, 16, device="cpu")
     monkeypatch.undo()
     monkeypatch.setattr(native_build, "load", _no_lib)
-    monkeypatch.setenv("SCTAG_PROBE", "device")
     with pytest.raises(OSError, match="unavailable"):
+        txl._probe_segments_device(segs, sk, vv, 16, 64, torch.device("cpu"))
+
+    # the device follows the grid: with two devices the device probe runs
+    seen = []
+    real = txl._probe_segments_device
+    monkeypatch.setattr(txl, "_probe_segments_device",
+                        lambda *a: seen.append(a[-1]) or real(*a))
+    monkeypatch.setenv("SCTAG_VIRTUAL_DEVICES", "2")
+    with pytest.raises(OSError, match="unavailable"):  # the junk row's re-probe
         txl.probe_segments(segs, sk, vv, 16, device="cpu")
-    monkeypatch.setenv("SCTAG_PROBE", "gpu")
-    with pytest.raises(ValueError, match="SCTAG_PROBE"):
-        txl.probe_segments(segs, sk, vv, 16, device="cpu")
+    assert seen == [torch.device("cpu")]

@@ -6,6 +6,7 @@ planted (mutated) adapters on both strands, reads without one, and reads
 with in-sequence N (the kernel cannot take those: mask fallback)."""
 
 import gzip
+import json
 
 import numpy as np
 import pytest
@@ -107,18 +108,55 @@ def test_multiword_adapter(tmp_path):
 
 
 def test_one_shot_path_and_stdout(tmp_path, monkeypatch, capsys):
-    """SCTAG_STREAM=0 (one-shot scan) and the uncompressed stdout writer."""
+    """The checkpointed route (the FASTQ read whole, then scanned in
+    batches) and the uncompressed stdout writer."""
     rng = np.random.default_rng(8)
     fq = _fastq(tmp_path / "reads.fastq", rng, n_reads=90)
-    monkeypatch.setenv("SCTAG_STREAM", "0")
-    want, got = _both(tmp_path, ["-r", str(fq)])
-    assert got == want
+    jax_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "jax.tsv.gz")])
     capsys.readouterr()
     jax_main(["extract_lr_bc", "-r", str(fq)])
     want_out = capsys.readouterr().out
+    monkeypatch.setenv("SCTAG_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+    monkeypatch.setenv("SCTAG_CHECKPOINT_BATCH", "32")
+    torch_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "torch.tsv.gz")])
+    want, got = (gzip.decompress((tmp_path / f"{n}.tsv.gz").read_bytes())
+                 for n in ("jax", "torch"))
+    assert got == want
+    assert len(list((tmp_path / "ckpt").glob("extract_lr_bc_scan-*/part*.npz"))) == 3
+    capsys.readouterr()
     torch_main(["extract_lr_bc", "-r", str(fq)])
     assert capsys.readouterr().out == want_out
     assert want_out.count("\n") == 91  # the echoed arguments + 90 rows
+
+
+@pytest.mark.parametrize("route", ["checkpointed", "multi-host"])
+def test_every_route_runs_the_prefilter(tmp_path, monkeypatch, route):
+    """The checkpointed route (the FASTQ read whole, scanned in batches) and
+    the multi-host route (each host's shard scanned as one batch) take the
+    host prefilter too: its d1 tier decides reads on each, and the output is
+    the JAX package's."""
+    from mhharness import run_port_hosts
+
+    fq = _fastq(tmp_path / "reads.fastq", np.random.default_rng(61))
+    jax_main(["extract_lr_bc", "-r", str(fq), "-o", str(tmp_path / "jax.tsv.gz")])
+    stats = tmp_path / "stats.jsonl"
+    out = tmp_path / "torch.tsv.gz"
+    argv = ["extract_lr_bc", "-r", str(fq), "-o", str(out)]
+    if route == "checkpointed":
+        monkeypatch.setenv("SCTAG_CHECKPOINT_DIR", str(tmp_path / "ckpt"))
+        monkeypatch.setenv("SCTAG_CHECKPOINT_BATCH", "64")
+        monkeypatch.setenv("SCTAG_STATS", str(stats))
+        torch_main(argv)
+        hosts = 1
+    else:
+        hosts = 2
+        run_port_hosts(argv, hosts, SCTAG_STATS=str(stats))
+    records = [json.loads(ln) for ln in stats.read_text().splitlines() if ln]
+    assert len(records) == hosts
+    for rec in records:
+        assert rec["counters"].get("scan.d1_resolved_reads", 0) > 0, rec["counters"]
+    want = gzip.decompress((tmp_path / "jax.tsv.gz").read_bytes())
+    assert gzip.decompress(out.read_bytes()) == want and want.count(b"\n") == 150
 
 
 def test_plotfile(tmp_path):

@@ -1,6 +1,7 @@
 """`extract_sr_bc_from_lr` end to end: sctagger_tpu_torch.cli.main against
 sctagger_tpu.cli.main on the same LR TSVs and whitelists (CPU), under the
-host probe and under the device probe (asked for the CPU).
+host probe (one CPU device) and under the device probe (a grid of two CPU
+devices: the probe follows the device).
 
 The gz TSVs must be identical after gunzip. Whitelists cover a gz file with
 a trailing newline, in one member and in two, a plain file with one and
@@ -24,7 +25,7 @@ torch.set_num_threads(1)
 
 @pytest.fixture(autouse=True)
 def _on_cpu(monkeypatch):
-    """The device probe runs on the card unless asked: ask for the CPU."""
+    """The stage runs on the card unless asked: ask for the CPU."""
     monkeypatch.setenv("SCTAG_DEVICE", "cpu")
 
 
@@ -103,7 +104,8 @@ def _both(tmp_path, argv):
 def test_cli_matches_jax(tmp_path, monkeypatch, probe, wl_kind):
     rng = np.random.default_rng(len(wl_kind))
     wl, lr = _inputs(tmp_path, rng, wl_kind)
-    monkeypatch.setenv("SCTAG_PROBE", probe)
+    if probe == "device":
+        monkeypatch.setenv("SCTAG_VIRTUAL_DEVICES", "2")
     want, got = _both(tmp_path, ["-i", str(lr), "-wl", str(wl), "--step-size", "20"])
     assert got == want
     if wl_kind in ("empty", "blank_last_line"):
@@ -119,20 +121,25 @@ def test_cli_matches_jax(tmp_path, monkeypatch, probe, wl_kind):
 def test_cutoff_options(tmp_path, monkeypatch, extra):
     rng = np.random.default_rng(40 + len(extra))
     wl, lr = _inputs(tmp_path, rng, "gz")
-    monkeypatch.setenv("SCTAG_PROBE", "device")
+    monkeypatch.setenv("SCTAG_VIRTUAL_DEVICES", "2")  # the device probe
     want, got = _both(tmp_path, ["-i", str(lr), "-wl", str(wl), *extra])
     assert got == want and got
 
 
 def test_stdout_and_n_hosts(tmp_path, capsys, monkeypatch):
-    """Rows to stdout as the JAX CLI writes them; with the default host
-    probe no device is resolved; with --n-hosts 2, host 0 alone probes its
+    """Rows to stdout as the JAX CLI writes them; without a card the stage
+    asks for SCTAG_DEVICE=cpu; with --n-hosts 2, host 0 alone probes its
     shard, then waits for host 1 at the first cross-host gather and gives
     up after SCTAG_SYNC_TIMEOUT, writing no output."""
-    monkeypatch.delenv("SCTAG_DEVICE", raising=False)
     rng = np.random.default_rng(8)
     wl, lr = _inputs(tmp_path, rng, "gz", n_rows=200)
     argv = ["extract_sr_bc_from_lr", "-i", str(lr), "-wl", str(wl)]
+    if not torch.cuda.is_available():  # the device is resolved before any read
+        monkeypatch.delenv("SCTAG_DEVICE")
+        with pytest.raises(RuntimeError, match="SCTAG_DEVICE=cpu"):
+            torch_main(argv)
+        monkeypatch.setenv("SCTAG_DEVICE", "cpu")
+    capsys.readouterr()
     jax_main(argv)
     want = capsys.readouterr().out
     torch_main(argv)

@@ -88,11 +88,10 @@ def test_device_probe_takes_the_table_on_any_device(card, monkeypatch):
         segs.append(s)
     on_card = txl.build_key_table(wl, device=card)
     on_cpu = txl.build_key_table(wl)
-    monkeypatch.setenv("SCTAG_PROBE", "device")
-    a = txl.probe_segments(segs, *on_card, 16, device=card)
-    b = txl.probe_segments(segs, *on_cpu, 16, device=card)
-    monkeypatch.setenv("SCTAG_PROBE", "host")
-    h = txl.probe_segments(segs, *on_cpu, 16)
+    monkeypatch.delenv("SCTAG_VIRTUAL_DEVICES", raising=False)
+    a = txl.probe_segments(segs, *on_card, 16, device=card)  # the card: device probe
+    b = txl._probe_segments_device(segs, *on_cpu, 16, txl.PROBE_CHUNK, card)
+    h = txl.probe_segments(segs, *on_cpu, 16, device="cpu")  # one CPU: host probe
     for x, y, z in zip(a, b, h):
         np.testing.assert_array_equal(x, y)
         np.testing.assert_array_equal(x, z)

@@ -96,9 +96,15 @@ CASES = [(bl, mr, "1") for bl in (12, 16, 20, 40) for mr in (0, 1, 2, 3)]
 CASES += [(bl, 2, "0") for bl in (12, 16, 20)]
 
 
+def _no_prefilter(monkeypatch) -> None:
+    """Every read on the device sweep: the host prefilter takes nothing."""
+    monkeypatch.setattr(tmatch, "prefilter_tiers", lambda bl, lengths: (False, False))
+
+
 @pytest.mark.parametrize("bl,mr,prefilter", CASES)
 def test_match_segments_matches_jax(bl, mr, prefilter, monkeypatch):
-    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", prefilter)
+    if prefilter == "0":
+        _no_prefilter(monkeypatch)
     monkeypatch.setattr(tmatch, "PASS1_CHUNK", 48)
     segs, bcs = _inputs(bl, mr, seed=1000 * bl + mr)
     want = _summary(jmatch.match_segments(segs, bcs, max_error=mr))
@@ -119,7 +125,7 @@ def test_uniform_chunks_take_match_full(monkeypatch):
             return _fn(*a)
 
         monkeypatch.setattr(tmatch, name, spy)
-    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", "0")
+    _no_prefilter(monkeypatch)
     rng = np.random.default_rng(9)
     segs, bcs = _inputs(16, 2, seed=9)
     uniform = [(_dna(rng, 4) + s + _dna(rng, 24))[:24] for s in segs]
@@ -136,7 +142,8 @@ def test_stats_count_escalated_reads(prefilter, monkeypatch):
     """``escalated_reads`` is the number of device-swept matched reads with
     more than TIES_K ties (prefilter-resolved reads carry full tie sets and
     never escalate)."""
-    monkeypatch.setenv("SCTAG_EXACT_PREFILTER", prefilter)
+    if prefilter == "0":
+        _no_prefilter(monkeypatch)
     segs, bcs = _inputs(16, 2, seed=5)
     stats = StageStats("match")
     r = tmatch.match_segments(segs, bcs, max_error=2, device="cpu", stats=stats)
@@ -169,3 +176,20 @@ def test_match_context_from_jax_arrays(monkeypatch):
 def test_match_segments_empty_input():
     r = tmatch.match_segments([], ["ACGTACGTACGTACGT"], max_error=2, device="cpu")
     assert r.rids.size == 0 and r.tie_slots.shape == (0, tmatch.TIES_K)
+
+
+@pytest.mark.parametrize("bl,longest,want", [
+    (16, 64, (True, True)),
+    (16, 256, (True, True)),
+    (16, 257, (False, False)),
+    (80, 320, (False, False)),
+    (31, 124, (True, True)),
+    (32, 128, (True, False)),
+    (33, 10, (False, False)),
+])
+def test_prefilter_tiers_follow_the_input(bl, longest, want):
+    """The prefilter takes single-word patterns and reads up to max(4 bl,
+    256) long, its dist-1 tier patterns up to 31 bp; nothing of an empty
+    input."""
+    assert tmatch.prefilter_tiers(bl, np.array([3, longest])) == want
+    assert tmatch.prefilter_tiers(bl, np.zeros(0, np.int32)) == (False, False)

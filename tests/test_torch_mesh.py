@@ -270,10 +270,11 @@ def test_shard_probe_matches_single_device_and_jax():
 
 
 def test_stages_engage_the_grid(monkeypatch):
-    """match_segments, scan_adapters (kernel chunks and the mask fallback)
-    and the device probe go through the grid when several devices are
-    visible, with the same results as on one device."""
-    from sctagger_tpu_torch.models.adapter import scan_adapters
+    """match_segments, scan_adapters_stream (kernel chunks and the mask
+    fallback) and the probe go through the grid when several devices are
+    visible, with the same results as on one device (where the probe is the
+    host probe)."""
+    from sctagger_tpu_torch.models.adapter import scan_adapters_stream
     from sctagger_tpu_torch.models.matcher import match_segments
 
     rng = np.random.default_rng(12)
@@ -282,12 +283,11 @@ def test_stages_engage_the_grid(monkeypatch):
             for i in range(300)]
     reads = _adapter_reads(rng, 200)
     reads[3] = reads[3][:5] + "N" + reads[3][6:] if len(reads[3]) > 6 else "ACGTN" + ADAPTER
-    monkeypatch.setenv("SCTAG_PROBE", "device")
     sk, vv = txl.build_key_table(bcs)
 
     def _run():
         r = match_segments(segs, bcs, 2, device="cpu")
-        s = scan_adapters(reads, ADAPTER, device="cpu")
+        s = scan_adapters_stream([((), reads)], ADAPTER, device="cpu")[2]
         p = txl.probe_segments(segs, sk, vv, 16, chunk=64, device="cpu")
         return ([r.rids.tolist(), r.dists.tolist(), [r.ties_of(i).tolist()
                  for i in range(r.rids.size)]],

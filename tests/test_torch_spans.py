@@ -242,9 +242,11 @@ def _alt_argv(tmp, rng, ending="\n"):
             str(tmp / "wl.txt.gz"), "-o", str(tmp / "alt.tsv.gz")]
 
 
-# stage -> (argv maker, env, timers, counters, spans on worker threads by
-# their thread's name prefix); the timers and counters of
-# gpubench/metrics/*.py, then this module's new spans
+# stage -> (argv maker, env ({tmp}: the test's directory), timers, counters,
+# spans on worker threads by their thread's name prefix); the timers and
+# counters of gpubench/metrics/*.py, then this module's new spans. The
+# one_shot route is the checkpointed one (the FASTQ read whole); the alt
+# stage takes its device probe on a grid of two CPU devices.
 STAGES = {
     "match_trie": (
         _match_argv, {},
@@ -269,12 +271,12 @@ STAGES = {
         {"stage.read_fastq": "scan.parse", "scan.d0probe_raw": "scan.d0probe"},
     ),
     "extract_lr_bc.one_shot": (
-        _lr_argv, {"SCTAG_STREAM": "0"},
+        _lr_argv, {"SCTAG_CHECKPOINT_DIR": "{tmp}/ckpt"},
         ["read_fastq", "adapter_scan", "stage.ranges_filter", "stage.write"],
-        ["scan.kernel_reads", "reads"], {},
+        ["scan.kernel_reads", "scan.d1_resolved_reads", "reads"], {},
     ),
     "extract_sr_bc_from_lr": (
-        _alt_argv, {"SCTAG_PROBE": "device"},
+        _alt_argv, {"SCTAG_VIRTUAL_DEVICES": "2"},
         ["read_whitelist", "read_lr_tsv", "key_table", "probe", "rank", "write",
          "probe.upload", "key_table.encode", "key_table.build"],
         ["key_table.entries", "whitelist.fixed_stride", "whitelist.bytes"], {},
@@ -288,7 +290,7 @@ def test_stage_records_what_the_benchmark_reads(tmp_path, stats_file, monkeypatc
     monkeypatch.setenv("SCTAG_DEVICE", "cpu")
     monkeypatch.setenv("SCTAG_PROGRESS", "0")
     for k, v in env.items():
-        monkeypatch.setenv(k, v)
+        monkeypatch.setenv(k, v.format(tmp=tmp_path))
     # several slices of the match's streaming layout (prep worker, index)
     monkeypatch.setattr(matcher, "PASS1_CHUNK", 1024)
     torch_main(make(tmp_path, np.random.default_rng(5)))
@@ -322,7 +324,7 @@ def test_alt_whitelist_fixed_stride_counter(tmp_path, stats_file, monkeypatch, e
     and the stage reads the lines again."""
     monkeypatch.setenv("SCTAG_DEVICE", "cpu")
     monkeypatch.setenv("SCTAG_PROGRESS", "0")
-    monkeypatch.setenv("SCTAG_PROBE", "device")
+    monkeypatch.setenv("SCTAG_VIRTUAL_DEVICES", "2")  # the device probe
     torch_main(_alt_argv(tmp_path, np.random.default_rng(6), ending))
     (rec,) = _records(stats_file)
     assert rec["counters"]["whitelist.fixed_stride"] == fixed

@@ -35,7 +35,7 @@ VERBATIM = [
     "core/packing.py", "core/ranges.py", "io/fastq.py", "io/tsv.py", "plots.py",
     "native/fastq_reader.cpp", "native/tsv_reader.cpp", "native/tsv_writer.cpp",
     "native/range_search.cpp", "native/adapter_d0.cpp", "native/adapter_d1.cpp",
-    "native/adapter_d2.cpp", "native/adapter_verify.h",
+    "native/adapter_verify.h",
     "core/cutoff.py", "io/bam.py", "pipeline/__init__.py", "pipeline/checkpoint.py",
     "native/bam_reader.cpp", "native/hash_table.cpp", "native/exact_probe.cpp",
     "io/sharding.py",
