@@ -1,10 +1,11 @@
 """Build/load the port's native host library (BGZF+BAM reader, FASTQ
 reader/packer, TSV reader and writers, the pattern-range search, the host
 adapter prefilters, the whitelist hash table and its threaded probe, the
-whole-file gzip inflate).
+whole-file gzip inflate, the threaded match TSV writer).
 
 The sources in this directory are copies of the JAX package's
-(``sctagger_tpu/native``), but for the port's own ``gz_inflate.cpp``. They
+(``sctagger_tpu/native``), but for the port's own ``gz_inflate.cpp`` and
+``tsv_writer_mt.cpp``. They
 compile with g++ (plain C ABI + ctypes) at first use into
 ``build/sctagger_tpu_torch/`` at the repository root, under a file name
 keyed by a hash of the sources and flags, so an edited source rebuilds and
@@ -29,6 +30,7 @@ _SRCS = [
     _DIR / "hash_table.cpp",
     _DIR / "exact_probe.cpp",
     _DIR / "tsv_writer.cpp",
+    _DIR / "tsv_writer_mt.cpp",
     _DIR / "range_search.cpp",
     _DIR / "adapter_d0.cpp",
     _DIR / "adapter_d1.cpp",
@@ -241,6 +243,29 @@ def _set_signatures(lib) -> None:
         ctypes.c_void_p,                    # ties_flat (int64*)
         ctypes.c_char_p,                    # bc_blob (2N x bl)
         ctypes.c_int64,                     # bl
+        ctypes.POINTER(ctypes.c_char_p),    # error
+    ]
+    lib.sctag_write_match_tsv_mt.restype = ctypes.c_int
+    lib.sctag_write_match_tsv_mt.argtypes = [
+        ctypes.c_char_p,                    # path
+        ctypes.c_int,                       # gz (0/1)
+        ctypes.c_int,                       # level
+        ctypes.c_char_p,                    # names blob (matched rows)
+        ctypes.c_void_p,                    # name_offs (int64*, m+1)
+        ctypes.c_void_p,                    # seg_buf (full arena)
+        ctypes.c_void_p,                    # seg_offs (int64*, absolute)
+        ctypes.c_void_p,                    # rids (int64*)
+        ctypes.c_int64,                     # m matched rows
+        ctypes.c_void_p,                    # dists (int64*)
+        ctypes.c_void_p,                    # tie_counts (int64*, m)
+        ctypes.c_void_p,                    # tie_slots (int64*, m x k)
+        ctypes.c_int64,                     # k
+        ctypes.c_void_p,                    # overflow ties (int64*)
+        ctypes.c_char_p,                    # bc_blob (2N x bl)
+        ctypes.c_int64,                     # bl
+        ctypes.c_int64,                     # block_bytes
+        ctypes.c_int,                       # cores
+        ctypes.c_void_p,                    # stats out (int64*, 3)
         ctypes.POINTER(ctypes.c_char_p),    # error
     ]
     lib.sctag_range_search_u64.restype = None

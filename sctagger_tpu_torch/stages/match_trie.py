@@ -29,13 +29,9 @@ import sys
 from concurrent.futures import ThreadPoolExecutor
 
 from ..core.packing import rev_compl
+from ..io.match_writer import write_match_tsv
 from ..io.sharding import read_tsv_shard
-from ..io.tsv import (
-    open_out,
-    read_lr_segments_tsv,
-    read_sr_barcodes_tsv,
-    write_match_tsv_native,
-)
+from ..io.tsv import open_out, read_lr_segments_tsv, read_sr_barcodes_tsv
 from ..models.matcher import MatchContext, match_segments
 from ..observability import StageStats, progress_bar, stage_scope
 from ..parallel.multihost import make_host_group
@@ -116,9 +112,7 @@ def _run(args, stats, device) -> None:
     with stats.timer("write"):
         wrote = False
         if args.outfile is not None:
-            wrote = write_match_tsv_native(
-                args.outfile, names, segs, barcodes, result
-            )
+            wrote = write_match_tsv(args.outfile, names, segs, barcodes, result)
         if not wrote:
             outfile = open_out(args.outfile, force_gzip=False)
             outfile.write(_render_rows(result, names, segs, barcodes))
@@ -198,9 +192,7 @@ def _run_checkpointed(args, stats, device, store, batch, names, segs,
                 # ASCII: non-ASCII batches take the Python text path
                 ok = _ascii_batch(names, s, e, seg_b) and store.save_file(
                     bi, "tsv",
-                    lambda p: write_match_tsv_native(
-                        p, names[s:e], seg_b, barcodes, result
-                    ),
+                    lambda p: write_match_tsv(p, names[s:e], seg_b, barcodes, result),
                 )
                 if not ok:
                     store.save_text(

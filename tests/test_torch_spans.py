@@ -330,3 +330,34 @@ def test_alt_whitelist_fixed_stride_counter(tmp_path, stats_file, monkeypatch, e
     assert rec["counters"]["whitelist.fixed_stride"] == fixed
     raw = gzip.decompress((tmp_path / "wl.txt.gz").read_bytes())
     assert rec["counters"]["whitelist.bytes"] == len(raw) == 17 * raw.count(b"\n")
+
+
+def test_match_gz_write_counters_inside_the_write_span(tmp_path, stats_file, monkeypatch):
+    """A gz match output in several members, written by several threads:
+    the writer's counters say so, ``write.raw_bytes`` is the decompressed
+    size, and the whole writer call lies inside the stage's ``write`` span."""
+    from sctagger_tpu_torch.io import match_writer
+    from sctagger_tpu_torch.stages import match_trie as stage
+
+    monkeypatch.setenv("SCTAG_DEVICE", "cpu")
+    monkeypatch.setenv("SCTAG_PROGRESS", "0")
+    monkeypatch.setattr(match_writer, "BLOCK_BYTES", 8 << 10)
+    monkeypatch.setattr(match_writer, "_cores", lambda: 4)
+    calls = []
+
+    def _timed(*a, **k):
+        t0 = time.time_ns()
+        ok = match_writer.write_match_tsv(*a, **k)
+        calls.append((t0, time.time_ns()))
+        return ok
+
+    monkeypatch.setattr(stage, "write_match_tsv", _timed)
+    torch_main(_ont_argv(tmp_path, np.random.default_rng(7)))
+    (rec,) = _records(stats_file)
+    raw = gzip.decompress((tmp_path / "out.tsv.gz").read_bytes())
+    c = rec["counters"]
+    assert c["write.raw_bytes"] == len(raw) > 3 * (8 << 10)
+    assert c["write.members"] > 3 and c["write.threads"] == 4
+    (write,) = [s for s in rec["spans"] if s["name"] == "write"]
+    ((t0, t1),) = calls
+    assert write["start_ns"] <= t0 < t1 <= write["end_ns"]
